@@ -1,0 +1,137 @@
+"""The port's CUDA kernels against their plain PyTorch versions.
+
+This file imports neither JAX nor the JAX package, so it also runs on a
+machine that has a GPU and no JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+
+(`--noconftest` because tests/conftest.py sets JAX up.) Here, without a
+card, the `cuda` tests skip; the wrapper checks and the dispatch of CPU
+tensors to the plain versions run everywhere.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from visualodometry_tpu_torch.ops import _build
+from visualodometry_tpu_torch.ops import match_top2 as mt
+from visualodometry_tpu_torch.ops import patches as pt
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _descriptors(rng, n0, n1, d, invalid=0.1):
+    d0 = rng.normal(size=(n0, d)).astype(np.float32)
+    d1 = rng.normal(size=(n1, d)).astype(np.float32)
+    k = min(n0, n1) // 2
+    d1[:k] = d0[:k] + 0.05 * rng.normal(size=(k, d))
+    d0 /= np.linalg.norm(d0, axis=1, keepdims=True)
+    d1 /= np.linalg.norm(d1, axis=1, keepdims=True)
+    return d0, d1, rng.random(n1) >= invalid
+
+
+def test_kernel_sources_and_build_names():
+    for name in _build.KERNEL_SOURCES:
+        src = _build.CSRC / f"{name}.cu"
+        assert src.exists()
+        assert "extern \"C\"" in src.read_text()
+        assert _build._lib_path(name).parent == _build.BUILD_DIR
+        assert _build._lib_path(name).name.startswith(name + "-")
+
+
+def test_match_top2_checks_inputs():
+    d = torch.zeros(4, 8)
+    with pytest.raises(TypeError):
+        mt.match_top2(d.double(), d.double(), torch.ones(4, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        mt.match_top2(d, torch.zeros(4, 16), torch.ones(4, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        mt.match_top2(d, d, torch.ones(5, dtype=torch.bool))
+
+
+def test_extract_patches_checks_inputs():
+    field = torch.zeros(2, 16, 16, dtype=torch.int32)
+    idx = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        pt.extract_patches(field.float(), idx, idx, idx, 4, 4)
+    with pytest.raises(TypeError):
+        pt.extract_patches(field, idx.long(), idx, idx, 4, 4)
+    with pytest.raises(ValueError):
+        pt.extract_patches(field, idx, idx, idx, 17, 4)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """No launch is counted for CPU tensors: they never reach a kernel."""
+    rng = np.random.default_rng(0)
+    before = (mt.launches, pt.launches)
+    d0, d1, v1 = _descriptors(rng, 16, 24, 8)
+    out = mt.match_top2(torch.as_tensor(d0), torch.as_tensor(d1), torch.as_tensor(v1))
+    ref = mt._top2_torch(torch.as_tensor(d0), torch.as_tensor(d1), torch.as_tensor(v1))
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    field = torch.arange(2 * 10 * 12, dtype=torch.int32).reshape(2, 10, 12)
+    k = torch.tensor([1, 0], dtype=torch.int32)
+    p = pt.extract_patches(field, k, torch.tensor([2, 6], dtype=torch.int32),
+                           torch.tensor([3, 8], dtype=torch.int32), 4, 4)
+    assert torch.equal(p[0], field[1, 2:6, 3:7]) and torch.equal(p[1], field[0, 6:10, 8:12])
+    assert (mt.launches, pt.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n0,n1,d,invalid",
+    [(1000, 777, 128, 0.1), (33, 5, 64, 0.0), (64, 300, 256, 0.5), (40, 50, 128, 1.0)],
+)
+def test_match_top2_kernel_matches_plain(cuda_device, n0, n1, d, invalid):
+    """Ragged tiles, other widths (shared memory above 48 KB at d=256),
+    and an all-invalid train set (every distance 1e30, index 0)."""
+    rng = np.random.default_rng(n0 + n1)
+    d0, d1, v1 = _descriptors(rng, n0, n1, d, invalid)
+    a = [torch.as_tensor(x, device=cuda_device) for x in (d0, d1, v1)]
+    before = mt.launches
+    b_k, s_k, i_k = mt.match_top2(*a)
+    assert mt.launches == before + 1
+    b_p, s_p, i_p = mt._top2_torch(*a)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(b_k, b_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s_k, s_p, rtol=1e-5, atol=1e-5)
+    sep = (s_p - b_p) > 1e-4
+    assert torch.equal(i_k[sep], i_p[sep])
+
+
+@pytest.mark.cuda
+def test_match_top2_ties_on_card(cuda_device):
+    d = torch.eye(8, device=cuda_device)
+    d1 = torch.cat([d[[3]], d, d[[3]]])
+    v1 = torch.ones(10, dtype=torch.bool, device=cuda_device)
+    v1[0] = False
+    b, s, i = mt.match_top2(d, d1, v1)
+    assert int(i[3]) == 4 and float(b[3]) == 0.0 and float(s[3]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,px", [(256, 16), (53, 16), (256, 7)])
+def test_extract_patches_kernel_matches_plain(cuda_device, W, px):
+    """The 16-byte path (W, px multiples of 4; any x0) and the scalar path."""
+    rng = np.random.default_rng(W + px)
+    L, H, K, py = 3, 48, 40, 24
+    field = torch.as_tensor(
+        rng.integers(-(2**31), 2**31 - 1, (L, H, W), dtype=np.int64).astype(np.int32),
+        device=cuda_device,
+    )
+    lvl = torch.as_tensor(rng.integers(0, L, K).astype(np.int32), device=cuda_device)
+    y0 = torch.as_tensor(rng.integers(0, H - py + 1, K).astype(np.int32), device=cuda_device)
+    x0 = torch.as_tensor(rng.integers(0, W - px + 1, K).astype(np.int32), device=cuda_device)
+    before = pt.launches
+    out = pt.extract_patches(field, lvl, y0, x0, py, px)
+    assert pt.launches == before + 1
+    assert torch.equal(out, pt._extract_patches_torch(field, lvl, y0, x0, py, px))
+    x0[0] = W - px + 1
+    with pytest.raises(IndexError):
+        pt.extract_patches(field, lvl, y0, x0, py, px)
