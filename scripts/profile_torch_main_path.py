@@ -1,10 +1,16 @@
 #!/usr/bin/env python3
 """Where the port's main path spends its time on one NVIDIA GPU.
 
-Run from the root of a checkout:  python3 scripts/profile_torch_main_path.py
+Run from the root of a checkout:
+    python3 scripts/profile_torch_main_path.py [--path main|kitti_gates]
+                                               [--pyramid-impl auto|pallas]
 
-At the bench configuration (chip_smoke.BENCH_CFG) on the 32-frame
-textured fixture, after one warm-up pass:
+`--path main` (default): the bench configuration (chip_smoke.BENCH_CFG) on
+the 32-frame textured fixture. `--path kitti_gates`: chip_smoke's
+KITTI-gates configuration on frames 96-151 of its marathon fixture (the
+blackout at 120-123 included), so reset, re-bootstrap and init frames are
+in the counts. `--pyramid-impl` is handed to the pipeline. After one
+warm-up pass:
   - wall time per frame of the whole pass, of the batched extraction
     alone, and of the VO step alone (host clock, synchronised);
   - host synchronisations per frame in extraction and in the step (every
@@ -12,13 +18,16 @@ textured fixture, after one warm-up pass:
   - a torch.profiler trace of one tracking chunk: device busy time over
     the wall time of the chunk (the profiler slows the host, so that wall
     time is longer than an unprofiled one), and the operators that take
-    the most device time.
+    the most device time;
+  - with `--path kitti_gates`, the host synchronisations of the step frame
+    by frame, grouped by what the frame did.
 
 Prints the card's name and power limit beside the numbers. Needs CUDA.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import subprocess
 import sys
@@ -31,6 +40,12 @@ sys.path.insert(0, ROOT)
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=("main", "kitti_gates"), default="main")
+    ap.add_argument("--pyramid-impl", choices=("auto", "pallas"), default="auto")
+    args = ap.parse_args()
+    impl = args.pyramid_impl
+
     import torch
 
     if not torch.cuda.is_available():
@@ -40,7 +55,11 @@ def main() -> int:
     from visualodometry_tpu_torch import config_from_dict
     from visualodometry_tpu_torch.core import init_state, make_chunked_pipeline_fn
     from visualodometry_tpu_torch.core.step import make_step_fn
-    from visualodometry_tpu_torch.data.synthetic import make_scene, render_fixture_u8
+    from visualodometry_tpu_torch.data.synthetic import (
+        make_marathon_fixture,
+        make_scene,
+        render_fixture_u8,
+    )
     from visualodometry_tpu_torch.frontend.sift import make_batched_extract_fn
     from visualodometry_tpu_torch.ops import _build
 
@@ -51,16 +70,22 @@ def main() -> int:
     print(card, flush=True)
     _build.build_all()
     dev = torch.device("cuda", 0)
-    scene = make_scene(np.random.default_rng(7), num_frames=cs.N_FRAMES, speed=1.2,
-                       turn_rate=0.002, image_size=cs.IMG_SIZE)
-    u8 = render_fixture_u8(scene)
-    cfg = config_from_dict(cs.BENCH_CFG)
-    chunks = [torch.as_tensor(u8[i : i + cs.CHUNK]).to(dev)
-              for i in range(0, cs.N_FRAMES, cs.CHUNK)]
-    n = cs.N_FRAMES
+    if args.path == "main":
+        scene = make_scene(np.random.default_rng(7), num_frames=cs.N_FRAMES, speed=1.2,
+                           turn_rate=0.002, image_size=cs.IMG_SIZE)
+        u8, K = render_fixture_u8(scene), scene.K
+        cfg = config_from_dict(cs.BENCH_CFG)
+    else:
+        first, last = 96, 152
+        u8, _, K, _ = make_marathon_fixture(num_frames=last, blanks=(cs.GATES_BLANK,))
+        u8 = u8[first:]
+        cfg = cs.gates_config()
+    n = len(u8)
+    chunks = [torch.as_tensor(u8[i : i + cs.CHUNK]).to(dev) for i in range(0, n, cs.CHUNK)]
+    print(f"path {args.path}, pyramid_impl {impl}, {n} frames", flush=True)
 
     def full_pass():
-        run = make_chunked_pipeline_fn(cfg, scene.K, device=dev)
+        run = make_chunked_pipeline_fn(cfg, K, device=dev, pyramid_impl=impl)
         st = init_state(cfg, desc_dim=128, device=dev)
         for c in chunks:
             st, _ = run(st, c)
@@ -71,8 +96,8 @@ def main() -> int:
     full_pass()
     t_pass = time.perf_counter() - t0
 
-    extract = make_batched_extract_fn(cfg, device=dev)
-    step = make_step_fn(cfg, scene.K, device=dev)
+    extract = make_batched_extract_fn(cfg, device=dev, pyramid_impl=impl)
+    step = make_step_fn(cfg, K, device=dev)
     t_ext = t_step = 0.0
     st = init_state(cfg, desc_dim=128, device=dev)
     feats_by_chunk = []
@@ -97,25 +122,40 @@ def main() -> int:
 
     syncs = {"extract": 0, "step": 0}
     sites = collections.Counter()
-    step = make_step_fn(cfg, scene.K, device=dev)
+    per_frame = []  # (step syncs, output) of every frame
+    step = make_step_fn(cfg, K, device=dev)
     st = init_state(cfg, desc_dim=128, device=dev)
     torch.cuda.set_sync_debug_mode("warn")
     try:
         for c in chunks:
-            for stage in ("extract", "step"):
-                with warnings.catch_warnings(record=True) as caught:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                feats = extract(c)
+            syncs["extract"] += len(caught)
+            for f in feats:
+                with warnings.catch_warnings(record=True) as caught_f:
                     warnings.simplefilter("always")
-                    if stage == "extract":
-                        feats = extract(c)
-                    else:
-                        for f in feats:
-                            st, _ = step(st, f)
-                syncs[stage] += len(caught)
-                sites.update(
-                    f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
-                )
+                    st, out = step(st, f)
+                syncs["step"] += len(caught_f)
+                per_frame.append((len(caught_f), out))
+                caught += caught_f
+            sites.update(
+                f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+            )
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    if args.path == "kitti_gates":
+        kinds = collections.defaultdict(list)
+        was_init = False
+        for k, out in per_frame:
+            reset, init = bool(out.did_reset), bool(out.initialized)
+            kind = ("reset" if reset else "tracking" if was_init and init
+                    else "initialized" if init else "bootstrap or waiting for init")
+            kinds[kind].append(k)
+            was_init = init
+        print("step synchronisations by frame kind (count of frames: syncs of each): "
+              + "; ".join(f"{kind} {len(v)}: {sorted(set(v))}" for kind, v in kinds.items()),
+              flush=True)
     print(f"host synchronisations: extraction {syncs['extract'] / n:.2f}/frame, "
           f"step {syncs['step'] / n:.2f}/frame; by source line over {n} frames: "
           f"{dict(sites.most_common(12))}", flush=True)
@@ -127,7 +167,7 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    run = make_chunked_pipeline_fn(cfg, scene.K, device=dev)
+    run = make_chunked_pipeline_fn(cfg, K, device=dev, pyramid_impl=impl)
     st = init_state(cfg, desc_dim=128, device=dev)
     st, _ = run(st, chunks[0])
     torch.cuda.synchronize()

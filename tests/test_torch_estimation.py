@@ -19,12 +19,14 @@ import torch
 from visualodometry_tpu.config import VOConfig as JaxConfig
 from visualodometry_tpu.estimation import essential as jess
 from visualodometry_tpu.estimation import fivepoint as jfive
+from visualodometry_tpu.estimation import p3p as jp3p
 from visualodometry_tpu.estimation import pnp as jpnp
 from visualodometry_tpu.estimation.ransac import sample_valid_indices as jsample
 from visualodometry_tpu.geometry.se3 import se3_exp
 from visualodometry_tpu_torch.config import config_from_dict
 from visualodometry_tpu_torch.estimation import essential as tess
 from visualodometry_tpu_torch.estimation import fivepoint as tfive
+from visualodometry_tpu_torch.estimation import p3p as tp3p
 from visualodometry_tpu_torch.estimation import pnp as tpnp
 from visualodometry_tpu_torch.estimation.ransac import sample_valid_indices
 
@@ -202,16 +204,84 @@ def test_pnp_ransac_matches_jax(scene):
     np.testing.assert_allclose(res_t.T_cw.numpy()[:3, 3], T1[:3, 3], atol=0.05)
 
 
+def test_p3p_grunert_matches_jax(scene):
+    """Identical (X, xy) triplets through both solvers. The four roots of
+    a sample come out of Durand-Kerner in the same order (same seeds, same
+    update order), so candidates are compared slot by slot: poses of
+    candidates both call `ok` to 1e-4; the `ok` masks may differ only
+    where a root sits at a gate (imaginary part, positivity), which is
+    rare: at most 2% of the slots."""
+    X, T1, _, uv1, _ = scene
+    rng = np.random.default_rng(11)
+    idx = rng.integers(0, N, (96, 3))
+    xy = ((uv1 - K[:2, 2]) / K[0, 0]).astype(np.float32)
+    R_j, t_j, ok_j = (np.asarray(v) for v in jax.jit(jp3p.p3p_grunert)(
+        jnp.asarray(X[idx]), jnp.asarray(xy[idx])))
+    R_t, t_t, ok_t = (v.numpy() for v in tp3p.p3p_grunert(_t(X[idx]), _t(xy[idx])))
+    assert R_t.shape == (96, 4, 3, 3) and t_t.shape == (96, 4, 3)
+    assert (ok_t != ok_j).mean() <= 0.02
+    both = ok_t & ok_j
+    assert both.sum() > 96
+    # Some triples are ill-conditioned (near-double roots): float32
+    # operation order then moves the pose by ~1e-3 while both poses fit
+    # their three points equally well. So: most candidates agree to 1e-4
+    # in R (1e-3 in t, at 5-40 m depths), and every port candidate
+    # reprojects its own triple as well as the JAX one does.
+    close = (np.abs(R_t - R_j).max((-1, -2)) < 1e-4) & (np.abs(t_t - t_j).max(-1) < 1e-3)
+    assert close[both].mean() >= 0.9, close[both].mean()
+
+    def triple_residual(R, t):
+        p = np.einsum("hcij,hnj->hcni", R, X[idx]) + t[:, :, None, :]
+        return np.abs(p[..., :2] / p[..., 2:] - xy[idx][:, None]).max((-1, -2))
+
+    res_t, res_j = triple_residual(R_t, t_t)[both], triple_residual(R_j, t_j)[both]
+    assert (res_t <= np.maximum(1e-4, 2.0 * res_j)).all()
+    # all-inlier samples (0.3 px noise): the best candidate is near the true pose
+    inl = np.linalg.norm(_project(X, T1) - uv1, axis=1) < 1.0
+    good = inl[idx].all(1)
+    err = np.abs(t_t - T1[:3, 3]).max(-1)
+    err[~ok_t] = np.inf
+    assert good.sum() > 20 and np.median(err[good].min(1)) < 0.2
+
+
+def test_pnp_ransac_p3p_matches_jax(scene):
+    """`pnp_solver="p3p"` on identical sample indices: the hypothesis
+    pools agree candidate by candidate (above), and the IRLS polish
+    converges to the same data-determined optimum: pose to 1e-4, inlier
+    sets equal up to 2 borderline points."""
+    X, T1, uv0, uv1, valid = scene
+    jc, tc = _cfgs(pnp_solver="p3p")
+    key = jax.random.key(6)
+    T_init = np.asarray(se3_exp(jnp.asarray([0.0, 0.0, -1.0, 0.0, 0.0, 0.0], jnp.float32)))
+    res_j = jax.jit(lambda X_, u, v, k, Ti: jpnp.solve_pnp_ransac(X_, u, v, k, jc, key, T_init=Ti))(
+        jnp.asarray(X), jnp.asarray(uv1), jnp.asarray(valid), jnp.asarray(K), jnp.asarray(T_init)
+    )
+    idx = jsample(key, jnp.asarray(valid), jc.pnp_hypotheses, 3)
+    res_t = tpnp.solve_pnp_ransac(
+        _t(X), _t(uv1), _t(valid), _t(K), tc, _t(np.asarray(idx)).long(), T_init=_t(T_init)
+    )
+    assert bool(res_t.ok) and bool(res_j.ok)
+    assert abs(int(res_t.num_inliers) - int(res_j.num_inliers)) <= 2
+    np.testing.assert_allclose(res_t.T_cw.numpy(), np.asarray(res_j.T_cw), atol=1e-4)
+    assert (res_t.inliers.numpy() != np.asarray(res_j.inliers)).sum() <= 2
+    np.testing.assert_allclose(res_t.T_cw.numpy()[:3, 3], T1[:3, 3], atol=0.05)
+
+
 @pytest.mark.parametrize("which", ["p3p", "8point"])
 def test_unported_solvers_raise(scene, which):
-    """P3P (get_config("kitti")) and the eight-point essential solver are
-    off the main path and not ported yet: they raise, not fall back."""
+    """The eight-point essential solver is not ported: it raises, not
+    falls back. P3P is ported; what raises there is a sample of the wrong
+    size (the DLT's six points) or an unknown solver name."""
     X, _, uv0, uv1, valid = scene
     if which == "p3p":
         _, tc = _cfgs(pnp_solver="p3p")
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match=r"\(H, 3\)"):
             tpnp.solve_pnp_ransac(_t(X), _t(uv1), _t(valid), _t(K), tc,
                                   torch.zeros(4, 6, dtype=torch.long))
+        with pytest.raises(ValueError, match="unknown pnp_solver"):
+            tpnp.solve_pnp_ransac(_t(X), _t(uv1), _t(valid), _t(K),
+                                  tc.replace(pnp_solver="epnp"),
+                                  torch.zeros(4, 3, dtype=torch.long))
     else:
         _, tc = _cfgs(essential_solver="8point")
         with pytest.raises(NotImplementedError):

@@ -17,6 +17,7 @@ import torch
 from visualodometry_tpu_torch.ops import _build
 from visualodometry_tpu_torch.ops import match_top2 as mt
 from visualodometry_tpu_torch.ops import patches as pt
+from visualodometry_tpu_torch.ops import pyramid as py
 
 
 @pytest.fixture
@@ -66,10 +67,22 @@ def test_extract_patches_checks_inputs():
         pt.extract_patches(field, idx, idx, idx, 17, 4)
 
 
+def test_blur_stack_checks_inputs():
+    img = torch.zeros(8, 8)
+    with pytest.raises(TypeError):
+        py.blur_stack(img.double(), ((0.25, 0.5, 0.25),))
+    with pytest.raises(ValueError):
+        py.blur_stack(img, ((0.5, 0.5),))
+    with pytest.raises(ValueError):
+        py.build_pyramid(img, 1, 3, impl="conv")
+    with pytest.raises(ValueError):
+        py.build_pyramid(img, 1, 3, first_octave=1)
+
+
 def test_cpu_tensors_take_the_plain_versions():
     """No launch is counted for CPU tensors: they never reach a kernel."""
     rng = np.random.default_rng(0)
-    before = (mt.launches, pt.launches)
+    before = (mt.launches, pt.launches, py.launches)
     d0, d1, v1 = _descriptors(rng, 16, 24, 8)
     out = mt.match_top2(torch.as_tensor(d0), torch.as_tensor(d1), torch.as_tensor(v1))
     ref = mt._top2_torch(torch.as_tensor(d0), torch.as_tensor(d1), torch.as_tensor(v1))
@@ -80,7 +93,11 @@ def test_cpu_tensors_take_the_plain_versions():
     p = pt.extract_patches(field, k, torch.tensor([2, 6], dtype=torch.int32),
                            torch.tensor([3, 8], dtype=torch.int32), 4, 4)
     assert torch.equal(p[0], field[1, 2:6, 3:7]) and torch.equal(p[1], field[0, 6:10, 8:12])
-    assert (mt.launches, pt.launches) == before
+    img = torch.as_tensor(rng.random((2, 20, 33)).astype(np.float32))
+    taps = py._stack_taps(3, 1.6)
+    stack = py.blur_stack(img, taps)
+    assert torch.equal(stack, py._blur_stack_torch(img, torch.tensor(taps)))
+    assert (mt.launches, pt.launches, py.launches) == before
 
 
 @pytest.mark.cuda
@@ -135,3 +152,74 @@ def test_extract_patches_kernel_matches_plain(cuda_device, W, px):
     x0[0] = W - px + 1
     with pytest.raises(IndexError):
         pt.extract_patches(field, lvl, y0, x0, py, px)
+
+
+# (B, C, H, W): the octave and base shapes of the 1226 x 370 paths (first
+# octave -1 and 0), and a ragged one
+BLUR_SHAPES = [
+    (8, 5, 740, 2452), (8, 5, 370, 1226), (8, 5, 185, 613), (8, 5, 93, 307),
+    (8, 5, 47, 154), (8, 1, 740, 2452), (8, 1, 370, 1226), (3, 5, 70, 130),
+]
+
+
+def _blur_taps(C, upsampled=True):
+    if C > 1:
+        return py._stack_taps(3, 1.6)
+    sig = (1.6**2 - (1.0 if upsampled else 0.5) ** 2) ** 0.5
+    return (tuple(py._full_kernel_np(sig, int(np.ceil(3.0 * sig))).tolist()),)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,H,W", BLUR_SHAPES)
+def test_blur_stack_kernel_matches_plain(cuda_device, B, C, H, W):
+    """1e-5 on inputs in [0, 1]: the kernel fuses each multiply-add, the
+    plain version rounds twice; both sum in tap order."""
+    rng = np.random.default_rng(H + W)
+    img = torch.as_tensor(rng.random((B, H, W)).astype(np.float32), device=cuda_device)
+    taps = _blur_taps(C, upsampled=(H == 740))
+    before = py.launches
+    out = py.blur_stack(img, taps)
+    assert py.launches == before + 1 and out.shape == (B, C, H, W)
+    ref = py._blur_stack_torch(img, torch.tensor(taps, device=cuda_device))
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 1e-5
+    # a frame's stack does not depend on the batch it is computed in
+    assert torch.equal(py.blur_stack(img[1], taps), out[1])
+
+
+@pytest.mark.cuda
+def test_blur_stack_other_radii_on_card(cuda_device):
+    """Tap counts that are and are not multiples of the kernel's step,
+    and a radius whose tile needs more than 48 KB of shared memory."""
+    rng = np.random.default_rng(3)
+    img = torch.as_tensor(rng.random((2, 50, 90)).astype(np.float32), device=cuda_device)
+    for radius in (1, 2, 6, 30):
+        taps = (tuple(py._full_kernel_np(radius / 3.0, radius).tolist()),) * 2
+        ref = py._blur_stack_torch(img, torch.tensor(taps, device=cuda_device))
+        assert float((py.blur_stack(img, taps) - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_pyramid_pallas_launches_kernel_for_every_octave(cuda_device):
+    rng = np.random.default_rng(4)
+    img = torch.as_tensor(rng.random((2, 94, 201)).astype(np.float32), device=cuda_device)
+    py.launches = 0
+    g_k, _ = py.build_pyramid(img, 3, 3, first_octave=-1, impl="pallas")
+    assert py.launches == 1 + 3
+    g_m, _ = py.build_pyramid(img, 3, 3, first_octave=-1, impl="matmul")
+    assert py.launches == 1 + 3
+    for a, b in zip(g_k, g_m):
+        assert float((a - b).abs().max()) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_pyramid_pallas_raises_without_its_library(cuda_device, monkeypatch):
+    """No fallback to the band matmul or the plain version on CUDA."""
+
+    def no_library(name):
+        raise RuntimeError(f"cannot load {name}")
+
+    monkeypatch.setattr(_build, "load_library", no_library)
+    img = torch.zeros(2, 40, 60, device=cuda_device)
+    with pytest.raises(RuntimeError, match="cannot load blur_stack"):
+        py.build_pyramid(img, 2, 3, impl="pallas")

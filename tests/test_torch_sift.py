@@ -65,8 +65,15 @@ def test_pyramid_batch_axis(frames):
 
 @pytest.mark.parametrize("kw", [{"first_octave": -1}, {"impl": "pallas"}])
 def test_unported_pyramid_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        tpyramid(torch.zeros(32, 32), 1, 3, **kw)
+    """Both options are ported now (tests/test_torch_pyramid.py holds them
+    against JAX): they return a pyramid, and what raises is a value that
+    neither package knows."""
+    gauss, dogs = tpyramid(torch.zeros(32, 32), 1, 3, **kw)
+    side = 64 if kw.get("first_octave") == -1 else 32
+    assert tuple(gauss[0].shape) == (6, side, side) and tuple(dogs[0].shape) == (5, side, side)
+    bad = {"first_octave": -2} if "first_octave" in kw else {"impl": "conv"}
+    with pytest.raises(ValueError):
+        tpyramid(torch.zeros(32, 32), 1, 3, **bad)
 
 
 def _overlap(f_j, f_t):

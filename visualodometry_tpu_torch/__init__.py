@@ -8,7 +8,8 @@ plain PyTorch on tensors: `NamedTuple`s of tensors for state, an explicit
 draws, and Python control flow on the host where the JAX engine used
 `lax.cond` / `lax.scan`.
 
-The two kernels of the SIFT -> kNN -> RANSAC path are CUDA C++ for sm_90a
+The three kernels of the SIFT -> kNN -> RANSAC path (top-2 matcher, patch
+gather, and the opt-in blur stack of the pyramid) are CUDA C++ for sm_90a
 (`csrc/`), built with nvcc at first use and bound through ctypes
 (`ops/_build.py`). Each sits beside a plain PyTorch version that the
 wrapper runs for CPU tensors.

@@ -143,7 +143,7 @@ def register_landmarks(map_state: MapState, pts3d: torch.Tensor, valid: torch.Te
     slots = torch.where(valid, new_ids % m, m)
     points = scatter_drop(map_state.points, slots, pts3d)
     ids = scatter_drop(map_state.ids, slots, new_ids.to(torch.int32))
-    count = torch.sum(valid.to(torch.int32))
+    count = torch.sum(valid).to(torch.int32)  # torch.sum widens to int64
     return (
         MapState(points=points, ids=ids, next_id=map_state.next_id + count),
         new_ids.to(torch.int32),

@@ -43,7 +43,7 @@ from visualodometry_tpu_torch.estimation.essential import (
     estimate_essential_ransac,
     recover_pose,
 )
-from visualodometry_tpu_torch.estimation.pnp import solve_pnp_ransac
+from visualodometry_tpu_torch.estimation.pnp import pnp_sample_size, solve_pnp_ransac
 from visualodometry_tpu_torch.estimation.ransac import sample_valid_indices
 from visualodometry_tpu_torch.frontend.interface import Features
 from visualodometry_tpu_torch.frontend.matcher import match_descriptors
@@ -70,12 +70,15 @@ def make_step_fn(
 
     `sampler(valid, H, k) -> (H, k)` draws the RANSAC minimal samples; by
     default `sample_valid_indices` from a `torch.Generator` on the device
-    seeded with cfg.seed. Tests pass the JAX engine's draws instead.
+    seeded with cfg.seed. Tests pass the JAX engine's draws instead. The
+    returned step carries that generator as `step.generator` (None with a
+    custom sampler), so a checkpoint can hold its state.
     """
     if cfg.matcher_type != "ratio":
         raise NotImplementedError("make_step_fn: only the ratio matcher is ported")
     dev = resolve_device(device)
     K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
+    gen = None
     if sampler is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(cfg.seed)
@@ -84,6 +87,7 @@ def make_step_fn(
             return sample_valid_indices(gen, valid, num_hypotheses, sample_size)
 
     ess_k = 5 if cfg.essential_solver == "5point" else 8
+    pnp_k = pnp_sample_size(cfg)
     min_pool = max(cfg.min_inliers, cfg.min_init_landmarks)
 
     def full(value, dtype):
@@ -249,7 +253,7 @@ def make_step_fn(
         n = feats.num_slots
         kf_ids = state.keyframe.ids
         median_flow = matched["median_flow"]
-        idx = sampler(pnp_valid, cfg.pnp_hypotheses, 6)
+        idx = sampler(pnp_valid, cfg.pnp_hypotheses, pnp_k)
         pnp = solve_pnp_ransac(
             lm_pts, uv_curr, pnp_valid, K, cfg, idx, T_init=se3_inverse(state.T_wc)
         )
@@ -312,4 +316,5 @@ def make_step_fn(
             speed=speed_plot, is_keyframe=bool(is_kf), kf_reason=reason, **matched,
         )
 
+    step.generator = gen
     return step

@@ -4,7 +4,9 @@ The port's own copy of the parts of visualodometry_tpu/data/synthetic.py
 that render the bench fixture: `make_scene` (a KITTI-like forward drive)
 and `render_textured_image` with the value-noise texture (a ray-cast
 corridor: ground plane and two side walls). Same code, same seeds, so the
-frames are the same as the JAX package's.
+frames are the same as the JAX package's. Also its long fixtures
+(`make_marathon_fixture`, `make_long_corridor_fixture`: S-curves and
+blackout windows that force resets) and `segment_ate`, their metric.
 """
 
 from __future__ import annotations
@@ -209,3 +211,105 @@ def render_fixture_u8(scene: SyntheticScene) -> np.ndarray:
         [render_textured_image(scene, f) for f in range(scene.num_frames)]
     )
     return (np.clip(imgs, 0, 1) * 255 + 0.5).astype(np.uint8)
+
+
+def _render_drive_u8(rng, num_frames, speed, image_size, rate, blanks):
+    """A textured drive with yaw-rate profile `rate`, as uint8 frames,
+    with near-featureless frames written over each `blanks` window."""
+    scene = make_scene(
+        rng,
+        num_frames=num_frames,
+        speed=speed,
+        num_landmarks=2,  # the textured renderer ignores point landmarks
+        image_size=image_size,
+        turn_profile=rate,
+    )
+    W, H = image_size
+    frames = np.empty((num_frames, H, W), np.uint8)
+    for f in range(num_frames):
+        img = render_textured_image(scene, f)
+        frames[f] = (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+    for b0, b1 in blanks:
+        flat = 90.0 + 2.0 * rng.standard_normal((b1 - b0, H, W))
+        frames[b0:b1] = np.clip(flat, 0, 255).astype(np.uint8)
+    return frames, scene
+
+
+def make_marathon_fixture(
+    num_frames: int = 1024,
+    image_size: tuple[int, int] = (1226, 370),
+    speed: float = 2.4,
+    seed: int = 13,
+    blanks: tuple = ((240, 243), (540, 544), (820, 822)),
+):
+    """Marathon-scale drive: KITTI-magnitude flows, S-curves, blackouts.
+
+    The corridor recipe at double frame speed (median inter-frame flows in
+    the tens of pixels, the regime of the KITTI gate set), a bounded
+    S-curve yaw profile yaw(t) = A sin(2 pi t / P) with A = 0.08 rad and
+    P = 96 frames starting after one period, and blackout windows that
+    each force the reset / re-bootstrap path. Every window of `blanks`
+    must lie inside `num_frames`.
+    Returns (u8 frames (F, H, W), gt_positions (F, 3), K, blanks).
+    """
+    rng = np.random.default_rng(seed)
+    t = np.arange(num_frames, dtype=np.float64)
+    period = 96.0
+    A = 0.08  # peak x excursion 11.6 m < wall at 14
+    # gated at a full period: a mid-cycle gate leaves a constant heading
+    # bias that integrates to a lateral runaway
+    rate = (
+        A * (2.0 * np.pi / period) / speed
+        * np.cos(2.0 * np.pi * t / period)
+        * (t >= period)
+    )
+    frames, scene = _render_drive_u8(rng, num_frames, speed, image_size, rate, blanks)
+    return frames, scene.gt_positions, scene.K, blanks
+
+
+def make_long_corridor_fixture(
+    num_frames: int = 256,
+    image_size: tuple[int, int] = (1226, 370),
+    speed: float = 1.2,
+    seed: int = 7,
+    blank: tuple[int, int] | None = (150, 153),
+):
+    """Long textured-corridor drive with two S-curves (peak ~0.8 deg/frame,
+    above the engine's turn threshold) and one `blank` window of
+    near-featureless frames that forces a reset and a re-bootstrap.
+
+    Returns (u8 frames (F, H, W), gt_positions (F, 3), K, blank).
+    """
+    rng = np.random.default_rng(seed)
+    t = np.arange(num_frames, dtype=np.float64)
+    rate = 0.012 * np.sin(2.0 * np.pi * t / 96.0) * (t > 32)
+    frames, scene = _render_drive_u8(
+        rng, num_frames, speed, image_size, rate, () if blank is None else (blank,)
+    )
+    return frames, scene.gt_positions, scene.K, blank
+
+
+def segment_ate(
+    est: np.ndarray,
+    gt: np.ndarray,
+    resets: np.ndarray,
+    warmup: int = 8,
+    min_len: int = 24,
+):
+    """Per-tracked-segment sim3 ATE around reset events.
+
+    After a reset the engine re-initializes its trajectory at the origin,
+    so a whole-sequence ATE across a reset is meaningless; each
+    continuously tracked segment is sim3-aligned on its own. Returns a
+    list of (start, end, ate) for segments at least `min_len` long,
+    skipping `warmup` frames after each (re)start.
+    """
+    from visualodometry_tpu_torch.eval import ate_rmse
+
+    cuts = [0] + [int(i) + 1 for i in np.nonzero(resets)[0]] + [len(est)]
+    out = []
+    for s, e in zip(cuts[:-1], cuts[1:]):
+        s2 = s + warmup
+        if e - s2 >= min_len:
+            out.append((s, e, float(ate_rmse(est[s2:e], gt[s2:e], align="sim3"))))
+    return out

@@ -1,9 +1,10 @@
 """Vectorized PnP RANSAC with damped Gauss-Newton refinement.
 
-Port of visualodometry_tpu/estimation/pnp.py with the 6-point DLT minimal
-solver (the P3P solver of `get_config("kitti")` waits for a later slice
-and raises). The minimal-sample indices come in explicitly as `idx`
-(H, 6); the GN polish's fixed iteration count is a Python loop.
+Port of visualodometry_tpu/estimation/pnp.py with both minimal solvers:
+the 6-point DLT and P3P (`cfg.pnp_solver`, P3P under `get_config("kitti")`).
+The minimal-sample indices come in explicitly as `idx`, (H, 6) or (H, 3)
+(`pnp_sample_size`); the GN polish's fixed iteration count is a Python
+loop.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from visualodometry_tpu_torch.config import VOConfig
+from visualodometry_tpu_torch.estimation.p3p import p3p_grunert
 from visualodometry_tpu_torch.estimation.ransac import take
 from visualodometry_tpu_torch.geometry.camera import (
     pixels_to_normalized,
@@ -107,6 +109,14 @@ def refine_pose_gn(T_cw, X, uv, weights, K, iters: int, damping: float = 1e-3):
     return T
 
 
+def pnp_sample_size(cfg: VOConfig) -> int:
+    """Points per minimal sample of `cfg.pnp_solver`."""
+    sizes = {"dlt": 6, "p3p": 3}
+    if cfg.pnp_solver not in sizes:
+        raise ValueError(f"unknown pnp_solver {cfg.pnp_solver!r}")
+    return sizes[cfg.pnp_solver]
+
+
 def solve_pnp_ransac(
     pts3d: torch.Tensor,
     uv: torch.Tensor,
@@ -116,19 +126,36 @@ def solve_pnp_ransac(
     idx: torch.Tensor,
     T_init: torch.Tensor | None = None,
 ) -> PnPResult:
-    """Batched DLT-PnP RANSAC over padded 2D-3D correspondences.
+    """Batched PnP RANSAC over padded 2D-3D correspondences.
 
     pts3d: (N, 3) world points; uv: (N, 2) pixels; valid: (N,) live mask;
-    idx: (H, 6) minimal-sample indices. `T_init` (camera-from-world) joins
-    the pool as a fallback hypothesis (see `_finish_pnp`).
+    idx: (H, k) minimal-sample indices, k = `pnp_sample_size(cfg)`.
+    `T_init` (camera-from-world) joins the pool as a fallback hypothesis
+    (see `_finish_pnp`).
     """
-    if cfg.pnp_solver != "dlt":
-        raise NotImplementedError(
-            f"solve_pnp_ransac: pnp_solver={cfg.pnp_solver!r} is not ported "
-            "(DLT only; P3P waits for a later slice)"
+    k = pnp_sample_size(cfg)
+    if idx.dim() != 2 or idx.shape[1] != k:
+        raise ValueError(
+            f"solve_pnp_ransac: pnp_solver={cfg.pnp_solver!r} takes (H, {k}) "
+            f"sample indices, not {tuple(idx.shape)}"
         )
     xy = pixels_to_normalized(uv, K)
     H = idx.shape[0]
+    thresh_sq = cfg.pnp_reproj_err * cfg.pnp_reproj_err
+
+    if cfg.pnp_solver == "p3p":
+        R4, t4, ok4 = p3p_grunert(pts3d[idx], xy[idx])
+        R_h = R4.reshape(-1, 3, 3)  # (4H, 3, 3)
+        t_h = t4.reshape(-1, 3)
+        err_sq, z = _reproj_err_sq(R_h, t_h, pts3d, uv, K)
+        inlier_mat = (
+            (err_sq < thresh_sq) & (z > 0) & valid[None, :] & ok4.reshape(-1)[:, None]
+        )
+        counts = torch.sum(inlier_mat, dim=1)
+        best = torch.argmax(counts)
+        return _finish_pnp(
+            R_h, t_h, inlier_mat, counts, best, pts3d, uv, valid, K, cfg, T_init
+        )
 
     # Hartley-style conditioning of the 3D points
     w_sum = torch.clamp(torch.sum(valid), min=1.0)
@@ -157,7 +184,6 @@ def solve_pnp_ransac(
     t_h = tn_h / scale - torch.einsum("hij,j->hi", R_h, centroid)
 
     err_sq, z = _reproj_err_sq(R_h, t_h, pts3d, uv, K)
-    thresh_sq = cfg.pnp_reproj_err * cfg.pnp_reproj_err
     inlier_mat = (err_sq < thresh_sq) & (z > 0) & valid[None, :]
     counts = torch.sum(inlier_mat, dim=1)
     best = torch.argmax(counts)

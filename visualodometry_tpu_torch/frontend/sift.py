@@ -1,6 +1,6 @@
 """SIFT-style keypoint detector + descriptor at fixed shape.
 
-Port of visualodometry_tpu/frontend/sift.py for `first_octave=0`: DoG
+Port of visualodometry_tpu/frontend/sift.py: DoG
 extrema by separable shifted compares, per-octave exact top-K into fixed
 slots, one-step quadratic subpixel refinement, a 36-bin orientation
 histogram and the 4x4x8 descriptor, all batched over keypoints.
@@ -526,36 +526,41 @@ def extract_sift_from_pyramid(pyr_pair, cfg: VOConfig) -> Features:
     )
 
 
-def _pyramid(imgs: torch.Tensor, cfg: VOConfig):
+def _pyramid(imgs: torch.Tensor, cfg: VOConfig, impl: str):
     return build_pyramid(
         _to_float_images(imgs),
         cfg.sift_num_octaves,
         cfg.sift_scales_per_octave,
         sigma0=cfg.sift_sigma,
         first_octave=cfg.sift_first_octave,
+        impl=impl,
     )
 
 
-def extract_sift(img: torch.Tensor, cfg: VOConfig, device=None) -> Features:
+def extract_sift(
+    img: torch.Tensor, cfg: VOConfig, device=None, pyramid_impl: str = "auto"
+) -> Features:
     """(H, W) image (float in [0, 1] or uint8) -> fixed-shape SIFT Features.
 
-    Runs on `device` (CUDA unless "cpu" is asked for).
+    Runs on `device` (CUDA unless "cpu" is asked for). `pyramid_impl` is
+    `build_pyramid`'s `impl` argument, handed on unchanged.
     """
     img = img.to(resolve_device(device))
-    gauss, dogs = _pyramid(img, cfg)
+    gauss, dogs = _pyramid(img, cfg, pyramid_impl)
     return extract_sift_from_pyramid((gauss, dogs), cfg)
 
 
-def make_batched_extract_fn(cfg: VOConfig, device=None):
+def make_batched_extract_fn(cfg: VOConfig, device=None, pyramid_impl: str = "auto"):
     """Chunk extractor: one pyramid batched over the chunk's frames, then
     detection / sampling / description frame by frame.
 
     Returns `extract_batch(imgs (C, H, W)) -> list of C Features`.
+    `pyramid_impl` is `build_pyramid`'s `impl` argument.
     """
     dev = resolve_device(device)
 
     def extract_batch(imgs: torch.Tensor) -> list[Features]:
-        gauss, dogs = _pyramid(imgs.to(dev), cfg)
+        gauss, dogs = _pyramid(imgs.to(dev), cfg, pyramid_impl)
         return [
             extract_sift_from_pyramid(
                 ([g[i] for g in gauss], [d[i] for d in dogs]), cfg

@@ -23,7 +23,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
-KERNEL_SOURCES = ("match_top2", "patches")
+KERNEL_SOURCES = ("match_top2", "patches", "blur_stack")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

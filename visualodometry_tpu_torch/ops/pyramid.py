@@ -12,17 +12,33 @@ Every function takes a leading batch of frames: (..., H, W) in,
 shape and cached, and so are their device copies, per device (the
 octave-0 matrices are ~30 MB; uploading them per frame would dominate).
 
-Not ported yet: `first_octave=-1` (bilinear 2x upsample) and the opt-in
-Pallas blur-stack kernel (`impl="pallas"`); `build_pyramid` raises on both.
+The second route is the blur stack, the counterpart of the Pallas kernel
+`blur_stack_pallas`: `blur_stack` runs the hand-written CUDA kernel
+(csrc/blur_stack.cu) for CUDA tensors and the plain PyTorch version
+`_blur_stack_torch` for CPU tensors. It is opt-in (`impl="pallas"`, the
+JAX argument's value, kept so a reader finds the counterpart); `"auto"`
+means the band matmul, as in the JAX package. What the TPU kernel needed
+and this one does not is dropped: the halo rounded up to a multiple of 4
+and the fixed 32-row tile of Mosaic's DMA alignment, the 64/128-lane
+padding, and `_pallas_blur_fits` with its fall-back to band matmuls when
+the upsampled base octave overflowed scoped VMEM. The CUDA kernel takes
+every shape, so `impl="pallas"` never runs a band matmul here.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from functools import lru_cache
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from visualodometry_tpu_torch.ops import _build
+
+# blur-stack kernel launches since the last reset (callers zero it)
+launches = 0
 
 
 def _full_kernel_np(sigma: float, radius: int) -> np.ndarray:
@@ -103,6 +119,110 @@ def downsample_2x(img: torch.Tensor) -> torch.Tensor:
     return img[..., ::2, ::2].contiguous()
 
 
+@lru_cache(maxsize=None)
+def _stack_taps(scales: int, sigma0: float) -> tuple[tuple[float, ...], ...]:
+    """Per-channel 1D taps for one octave, all at the shared stack-max
+    radius of the band-matmul path (`_octave_mats`).
+
+    Channel i has incremental blur sqrt((sigma0*k^(i+1))^2 - sigma0^2)
+    applied to the octave base. (A per-channel radius changes the blur by
+    ~5e-4, enough to flip marginal DoG extrema; the JAX package measured
+    and reverted it.)
+    """
+    k = 2.0 ** (1.0 / scales)
+    sigmas = [
+        math.sqrt(max((sigma0 * k ** (i + 1)) ** 2 - sigma0**2, 1e-8))
+        for i in range(scales + 2)
+    ]
+    radius = max(1, int(math.ceil(3.0 * max(sigmas))))
+    return tuple(
+        tuple(_full_kernel_np(s, radius).tolist()) for s in sigmas
+    )
+
+
+@lru_cache(maxsize=None)
+def _taps_on(taps: tuple[tuple[float, ...], ...], device: torch.device) -> torch.Tensor:
+    t = torch.tensor(taps, dtype=torch.float32)
+    if t.dim() != 2 or t.shape[1] % 2 != 1:
+        raise ValueError("blur_stack: taps must be C rows of one odd length")
+    return t.to(device)
+
+
+def _blur_stack_torch(bases: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """Plain version: edge-pad, then two sums over shifted slices.
+
+    bases (B, H, W), taps (C, T) -> (B, C, H, W), float32, every sum in
+    tap order (tap 0 first) like the kernel.
+    """
+    B, H, W = bases.shape
+    C, T = taps.shape
+    R = (T - 1) // 2
+    padded = F.pad(bases[:, None], (R, R, R, R), mode="replicate")  # (B,1,H+2R,W+2R)
+    w = taps.reshape(1, C, 1, 1, T)
+    h = w[..., 0] * padded[..., 0:W]
+    for t in range(1, T):
+        h = h + w[..., t] * padded[..., t : t + W]
+    out = w[..., 0] * h[:, :, 0:H]
+    for t in range(1, T):
+        out = out + w[..., t] * h[:, :, t : t + H]
+    return out
+
+
+def blur_stack(bases: torch.Tensor, taps: tuple[tuple[float, ...], ...]) -> torch.Tensor:
+    """(..., H, W) bases -> (..., C, H, W) Gaussian stacks, C = len(taps).
+
+    Channel c is the edge-padded separable convolution of the base with
+    the static tap vector `taps[c]`; all vectors have one odd length.
+    CUDA tensors launch the kernel (one launch for the whole batch, one
+    read of each base for all channels); CPU tensors take the plain
+    version. There is no fallback between the two.
+    """
+    global launches
+    if bases.dtype != torch.float32 or bases.dim() < 2:
+        raise TypeError("blur_stack: bases must be (..., H, W) float32")
+    lead = bases.shape[:-2]
+    H, W = bases.shape[-2:]
+    tap_t = _taps_on(taps, bases.device)
+    C, T = tap_t.shape
+    flat = bases.reshape(-1, H, W)
+    if bases.device.type == "cpu":
+        return _blur_stack_torch(flat, tap_t).reshape(*lead, C, H, W)
+    if bases.device.type != "cuda":
+        raise ValueError(f"blur_stack: unsupported device {bases.device}")
+    flat = flat.contiguous()
+    out = torch.empty((flat.shape[0], C, H, W), dtype=torch.float32, device=bases.device)
+    lib = _build.load_library("blur_stack")
+    fn = lib.blur_stack_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    err = fn(
+        flat.data_ptr(), tap_t.data_ptr(), out.data_ptr(),
+        flat.shape[0], C, T, H, W, _build.current_stream_handle(bases.device),
+    )
+    _build.check_launch("blur_stack", err)
+    launches += 1
+    return out.reshape(*lead, C, H, W)
+
+
+def build_gaussian_octave_pallas(
+    base: torch.Tensor, sigma0: float, scales: int
+) -> torch.Tensor:
+    """Drop-in for `build_gaussian_octave` through the blur stack."""
+    x = blur_stack(base, _stack_taps(scales, float(sigma0)))
+    return torch.cat([base[..., None, :, :], x], dim=-3)
+
+
+def upsample_2x(img: torch.Tensor) -> torch.Tensor:
+    """Bilinear 2x upsample of (..., H, W), half-pixel centres, edges
+    clamped: what `jax.image.resize(img, (2H, 2W), "linear")` computes."""
+    H, W = img.shape[-2:]
+    out = F.interpolate(
+        img.reshape(-1, 1, H, W), size=(2 * H, 2 * W), mode="bilinear",
+        align_corners=False,
+    )
+    return out.reshape(*img.shape[:-2], 2 * H, 2 * W)
+
+
 def build_pyramid(
     img: torch.Tensor,
     num_octaves: int,
@@ -117,21 +237,36 @@ def build_pyramid(
     Returns (gauss, dogs): lists over octaves of (..., scales+3, Ho, Wo)
     and (..., scales+2, Ho, Wo). Like OpenCV SIFT, the input is
     pre-blurred up to sigma0 assuming `assumed_blur` sensor blur.
+
+    `first_octave=-1` adds cv2.SIFT's upsampled base octave (bilinear 2x;
+    the assumed sensor blur doubles); mapping coordinates back to input
+    pixels is the caller's job via 2^(o + first_octave). `impl`: "auto" and
+    "matmul" run the band matmuls; "pallas" runs the blur stack for the
+    base pre-blur and for every octave.
     """
-    if first_octave != 0:
-        raise NotImplementedError(
-            "build_pyramid: only first_octave=0 is ported (the upsampled "
-            "-1 octave waits for a later slice)"
-        )
-    if impl not in ("auto", "matmul"):
-        raise NotImplementedError(
-            f"build_pyramid: impl={impl!r} is not ported (band matmul only)"
-        )
+    if first_octave not in (0, -1):
+        raise ValueError(f"build_pyramid: first_octave must be 0 or -1, not {first_octave}")
+    if impl not in ("auto", "matmul", "pallas"):
+        raise ValueError(f"build_pyramid: unknown impl {impl!r}")
+    img = img.to(torch.float32)
+    if first_octave == -1:
+        img = upsample_2x(img)
+        assumed_blur = 2.0 * assumed_blur
     sig_diff = math.sqrt(max(sigma0**2 - assumed_blur**2, 1e-8))
-    base = blur_2d(img, sig_diff)
+    if impl == "pallas":
+        base_taps = (
+            tuple(
+                _full_kernel_np(sig_diff, max(1, int(math.ceil(3.0 * sig_diff)))).tolist()
+            ),
+        )
+        base = blur_stack(img, base_taps)[..., 0, :, :]
+        octave = build_gaussian_octave_pallas
+    else:
+        base = blur_2d(img, sig_diff)
+        octave = build_gaussian_octave
     gauss, dogs = [], []
     for _ in range(num_octaves):
-        stack = build_gaussian_octave(base, sigma0, scales)
+        stack = octave(base, sigma0, scales)
         gauss.append(stack)
         dogs.append(stack[..., 1:, :, :] - stack[..., :-1, :, :])
         # next octave seeds from the level with 2*sigma0 blur
