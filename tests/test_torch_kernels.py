@@ -56,6 +56,40 @@ def test_match_top2_checks_inputs():
         mt.match_top2(d, d, torch.ones(5, dtype=torch.bool))
 
 
+def test_match_top2_rejects_zero_depth():
+    d = torch.zeros(4, 0)
+    with pytest.raises(ValueError, match="depth"):
+        mt.match_top2(d, d, torch.ones(4, dtype=torch.bool))
+
+
+@pytest.mark.parametrize(
+    "n0,n1,sms,want",
+    [
+        (4096, 4096, 132, 4),  # the main path: 32 query tiles x 4 splits
+        (2048, 4096, 132, 8),
+        (4096, 4096 - 37, 132, 4),
+        (33, 5, 132, 1),  # one train tile: never an empty split
+        (64, 300, 132, 3),
+        (100, 100000, 132, 32),  # capped
+        (40000, 4096, 132, 1),  # more query tiles than SMs
+        (0, 0, 132, 1),
+    ],
+)
+def test_match_top2_splits(n0, n1, sms, want):
+    """The train-set split the wrapper hands the kernel: query tiles x
+    splits fills the SMs once, no split is empty, the scratch stays small."""
+    s = mt._splits(n0, n1, sms)
+    assert s == want
+    assert 1 <= s <= mt.MAX_SPLITS and s <= max(1, -(-n1 // 128))
+
+
+def test_match_top2_splits_rejects_bad_sizes():
+    with pytest.raises(ValueError):
+        mt._splits(-1, 10, 132)
+    with pytest.raises(ValueError):
+        mt._splits(10, 10, 0)
+
+
 def test_extract_patches_checks_inputs():
     field = torch.zeros(2, 16, 16, dtype=torch.int32)
     idx = torch.zeros(3, dtype=torch.int32)
@@ -103,11 +137,14 @@ def test_cpu_tensors_take_the_plain_versions():
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "n0,n1,d,invalid",
-    [(1000, 777, 128, 0.1), (33, 5, 64, 0.0), (64, 300, 256, 0.5), (40, 50, 128, 1.0)],
+    [(1000, 777, 128, 0.1), (33, 5, 64, 0.0), (64, 300, 256, 0.5), (40, 50, 128, 1.0),
+     (300, 1000, 8, 0.1), (300, 1000, 100, 0.1), (130, 700, 6, 0.0), (200, 900, 320, 0.1),
+     (4096, 4096 - 37, 128, 0.1)],
 )
 def test_match_top2_kernel_matches_plain(cuda_device, n0, n1, d, invalid):
-    """Ragged tiles, other widths (shared memory above 48 KB at d=256),
-    and an all-invalid train set (every distance 1e30, index 0)."""
+    """Ragged tiles and splits, other depths (a streamed query tile above
+    d=128; zero-padded depths 8, 100 and, unaligned, 6), and an all-invalid
+    train set (every distance 1e30, index 0)."""
     rng = np.random.default_rng(n0 + n1)
     d0, d1, v1 = _descriptors(rng, n0, n1, d, invalid)
     a = [torch.as_tensor(x, device=cuda_device) for x in (d0, d1, v1)]
@@ -133,9 +170,47 @@ def test_match_top2_ties_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("W,px", [(256, 16), (53, 16), (256, 7)])
+def test_match_top2_duplicate_rows_in_different_splits(cuda_device):
+    """A train row and its copy in another split: the lower index wins and
+    the copy's distance is the second; with the first made invalid, the copy
+    wins. Exact, because equal rows give equal sums in every block."""
+    rng = np.random.default_rng(11)
+    d0, d1, _ = _descriptors(rng, 256, 1024, 128, 0.0)
+    assert mt._splits(256, 1024, 132) == 8  # 128 train rows a split
+    d1[70] = d0[5]
+    d1[900] = d0[5]  # split 0 and split 7
+    d1[300] = d1[650]  # splits 2 and 5, not the best of any query
+    a0, a1 = (torch.as_tensor(x, device=cuda_device) for x in (d0, d1))
+    v1 = torch.ones(1024, dtype=torch.bool, device=cuda_device)
+    b, s, i = mt.match_top2(a0, a1, v1)
+    b_p, s_p, i_p = mt._top2_torch(a0, a1, v1)
+    assert int(i[5]) == 70 and float(s[5]) == float(b[5])
+    assert float(b[5]) <= 5e-6
+    sep = (s_p - b_p) > 1e-4
+    sep[5] = False
+    assert torch.equal(i[sep], i_p[sep])
+    v1[70] = False
+    b, s, i = mt.match_top2(a0, a1, v1)
+    assert int(i[5]) == 900 and float(s[5]) > float(b[5])
+    # the same distance from two splits for every query: second == best
+    # only where that row is the best, and then the lower index is kept
+    q = a1[[300]].clone()
+    b, s, i = mt.match_top2(q, a1, torch.ones_like(v1))
+    assert int(i[0]) == 300 and float(s[0]) == float(b[0])
+
+
+@pytest.mark.cuda
+def test_match_top2_empty_query_set(cuda_device):
+    d0 = torch.zeros(0, 16, device=cuda_device)
+    d1 = torch.ones(10, 16, device=cuda_device)
+    b, s, i = mt.match_top2(d0, d1, torch.ones(10, dtype=torch.bool, device=cuda_device))
+    assert b.shape == s.shape == i.shape == (0,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,px", [(256, 16), (53, 16), (256, 7), (130, 16)])
 def test_extract_patches_kernel_matches_plain(cuda_device, W, px):
-    """The 16-byte path (W, px multiples of 4; any x0) and the scalar path."""
+    """The TMA path (W, px multiples of 4; any x0) and the scalar path."""
     rng = np.random.default_rng(W + px)
     L, H, K, py = 3, 48, 40, 24
     field = torch.as_tensor(
@@ -152,6 +227,61 @@ def test_extract_patches_kernel_matches_plain(cuda_device, W, px):
     x0[0] = W - px + 1
     with pytest.raises(IndexError):
         pt.extract_patches(field, lvl, y0, x0, py, px)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 1, 2, 3])
+def test_extract_patches_tma_any_x0_alignment(cuda_device, shift):
+    """Every residue of x0 modulo 4 words at the main path's window, more
+    keypoints than one round of the ring, and the field's corners."""
+    rng = np.random.default_rng(shift)
+    L, H, W, K, py, px = 6, 96, 384, 1500, 72, 64
+    field = torch.as_tensor(
+        rng.integers(-(2**31), 2**31 - 1, (L, H, W), dtype=np.int64).astype(np.int32),
+        device=cuda_device,
+    )
+    lvl = rng.integers(0, L, K).astype(np.int32)
+    y0 = rng.integers(0, H - py + 1, K).astype(np.int32)
+    x0 = (rng.integers(0, (W - px) // 4, K) * 4 + shift).astype(np.int32)
+    lvl[:4], y0[:4], x0[:4] = (0, 0, L - 1, L - 1), (0, H - py, 0, H - py), (shift, W - px, 0, W - px)
+    lvl, y0, x0 = (torch.as_tensor(a, device=cuda_device) for a in (lvl, y0, x0))
+    out = pt.extract_patches(field, lvl, y0, x0, py, px)
+    assert torch.equal(out, pt._extract_patches_torch(field, lvl, y0, x0, py, px))
+
+
+@pytest.mark.cuda
+def test_extract_patches_float_image_bitcast(cuda_device):
+    """Float32 pixels bitcast to int32 words come back bit-equal: the copy
+    assumes nothing about what a word holds (NaN and -0.0 included)."""
+    rng = np.random.default_rng(5)
+    img = rng.standard_normal((2, 64, 128)).astype(np.float32)
+    img[0, 3, 5], img[1, 10, 20], img[1, 11, 21] = np.nan, -0.0, np.inf
+    img = torch.as_tensor(img, device=cuda_device)
+    K, py, px = 77, 16, 16
+    lvl = torch.as_tensor(rng.integers(0, 2, K).astype(np.int32), device=cuda_device)
+    y0 = torch.as_tensor(rng.integers(0, 64 - py + 1, K).astype(np.int32), device=cuda_device)
+    x0 = torch.as_tensor(rng.integers(0, 128 - px + 1, K).astype(np.int32), device=cuda_device)
+    y0[0], x0[0], lvl[0] = 0, 0, 0
+    out = pt.extract_patches(img.view(torch.int32), lvl, y0, x0, py, px)
+    ref = pt._extract_patches_torch(img.view(torch.int32), lvl, y0, x0, py, px)
+    assert torch.equal(out, ref)
+    patches = out.view(torch.float32)
+    assert torch.isnan(patches[0, 3, 5]) and bool(torch.isfinite(patches[0, 0, 0]))
+
+
+@pytest.mark.cuda
+def test_extract_patches_adds_no_sync(cuda_device):
+    """Encoding the tensor map is host arithmetic: with `check_bounds=False`
+    a call makes no device synchronisation."""
+    field = torch.zeros(2, 96, 384, dtype=torch.int32, device=cuda_device)
+    z = torch.zeros(5, dtype=torch.int32, device=cuda_device)
+    pt.extract_patches(field, z, z, z, 72, 64, check_bounds=False)  # builds, loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pt.extract_patches(field, z, z, z, 72, 64, check_bounds=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 # (B, C, H, W): the octave and base shapes of the 1226 x 370 paths (first

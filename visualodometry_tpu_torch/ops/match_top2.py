@@ -5,9 +5,15 @@ the hand-written kernel (csrc/match_top2.cu) for CUDA tensors and the
 plain PyTorch version `_top2_torch` for CPU tensors; there is no fallback
 from one to the other.
 
-Products are float32 in both: the TPU kernel's bf16 products (with f32
-accumulation) are not carried over, so the kernel agrees with the float32
-reference matcher `_top2_jnp` rather than with a bf16 variant.
+Products are float32-grade in both: the TPU kernel's bf16 products (with
+f32 accumulation) are not carried over. The kernel forms them on the tensor
+cores from a two-part TF32 split of each float32 value ("3xTF32"), so it
+agrees with the float32 reference matcher `_top2_jnp` rather than with a
+bf16 variant.
+
+The kernel's grid is query tiles x train splits; each block writes a partial
+(best, second, argbest) to a scratch tensor allocated here, and a merge
+kernel of the same source combines the splits in order.
 """
 
 from __future__ import annotations
@@ -20,8 +26,25 @@ from visualodometry_tpu_torch.ops import _build
 
 _BIG = 1e30
 
-# kernel launches since the last reset (a plain count; callers zero it)
+# calls that reached the kernel since the last reset (a plain count; callers
+# zero it). One call launches the split kernel and its merge kernel.
 launches = 0
+
+_TILE = 128  # query rows per block and train rows per tile in the kernel
+MAX_SPLITS = 32
+
+
+def _splits(n0: int, n1: int, sms: int) -> int:
+    """Train-set splits so that query tiles x splits fills `sms` SMs once.
+
+    At least 1, at most `MAX_SPLITS` and at most the number of train tiles
+    (a split is never empty).
+    """
+    if n0 < 0 or n1 < 0 or sms < 1:
+        raise ValueError(f"match_top2: bad sizes n0={n0}, n1={n1}, sms={sms}")
+    q_tiles = max(1, -(-n0 // _TILE))
+    t_tiles = max(1, -(-n1 // _TILE))
+    return max(1, min(sms // q_tiles, MAX_SPLITS, t_tiles))
 
 
 def _top2_torch(desc0, desc1, valid1):
@@ -57,6 +80,8 @@ def _check(desc0, desc1, valid1):
         raise ValueError("match_top2: valid1 must be bool (N1,)")
     if not (desc0.device == desc1.device == valid1.device):
         raise ValueError("match_top2: inputs on different devices")
+    if desc0.shape[1] < 1:
+        raise ValueError("match_top2: descriptors need a depth of at least 1")
 
 
 def match_top2(desc0: torch.Tensor, desc1: torch.Tensor, valid1: torch.Tensor):
@@ -81,14 +106,18 @@ def match_top2(desc0: torch.Tensor, desc1: torch.Tensor, valid1: torch.Tensor):
     best = torch.empty(n0, dtype=torch.float32, device=desc0.device)
     second = torch.empty(n0, dtype=torch.float32, device=desc0.device)
     idx = torch.empty(n0, dtype=torch.int32, device=desc0.device)
+    sms = torch.cuda.get_device_properties(desc0.device).multi_processor_count
+    splits = _splits(n0, n1, sms)
+    # the blocks' partial best, second (float32) and argbest (int32) words
+    scratch = torch.empty(3 * splits * n0, dtype=torch.int32, device=desc0.device)
     lib = _build.load_library("match_top2")
     fn = lib.match_top2_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     err = fn(
         desc0.data_ptr(), desc1.data_ptr(), valid_u8.data_ptr(),
-        best.data_ptr(), second.data_ptr(), idx.data_ptr(),
-        n0, n1, d, _build.current_stream_handle(desc0.device),
+        best.data_ptr(), second.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
+        n0, n1, d, splits, _build.current_stream_handle(desc0.device),
     )
     _build.check_launch("match_top2", err)
     launches += 1

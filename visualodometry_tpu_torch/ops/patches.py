@@ -84,10 +84,10 @@ def extract_patches(
     lib = _build.load_library("patches")
     fn = lib.patches_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     err = fn(
         field.data_ptr(), lvl.data_ptr(), y0.data_ptr(), x0.data_ptr(),
-        out.data_ptr(), K, H, W, patch_y, patch_x,
+        out.data_ptr(), K, L, H, W, patch_y, patch_x,
         _build.current_stream_handle(field.device),
     )
     _build.check_launch("extract_patches", err)
