@@ -26,8 +26,10 @@ Phases (any failed check raises, so the script exits non-zero):
      times and not the host's launch times; median of three batches), the
      bound, and the launches; K3's times are
      one chunk's five launches of the KITTI-gates path summed and divided
-     by 8 (a frame's share), with the band-matmul pyramid's time at the
-     same shapes on a line of its own;
+     by 8 (a frame's share), each launch also on a line of its own with the
+     kernel build it ran (specialised or generic), its bound and its share
+     of the bound, and the band-matmul pyramid's time at the same shapes on
+     a line of its own;
   6. the main path at the bench configuration (4096 slots, 3 octaves,
      256 + 256 RANSAC hypotheses, 20480-slot map) on the 32-frame textured
      fixture in 4 chunks of 8, through `make_chunked_pipeline_fn`: every
@@ -441,7 +443,8 @@ def phase_blur(torch, dev, card):
         check(float((library() - out_p).abs().max()) <= 1e-4, "K3 library yardstick is off")
         check(float((band_matmul() - out_p).abs().max()) <= 1e-4,
               "band-matmul yardstick is off")
-        t_k += time_ms(torch, lambda: p.blur_stack(img, taps))
+        launch_ms = time_ms(torch, lambda: p.blur_stack(img, taps))
+        t_k += launch_ms
         t_p += time_ms(torch, lambda: p._blur_stack_torch(img, tap_t), reps=7, warmup=1)
         t_l += time_ms(torch, library, reps=11, warmup=2)
         t_m += time_ms(torch, band_matmul, reps=11, warmup=2)
@@ -449,7 +452,11 @@ def phase_blur(torch, dev, card):
         nbytes = 4.0 * B * H * W * (1 + C)
         t_ops += flops / PEAK_F32_FLOPS
         t_bytes += nbytes / PEAK_BYTES
-        b_ms += bound_ms(flops, nbytes)[0]
+        launch_bound, launch_by = bound_ms(flops, nbytes)
+        b_ms += launch_bound
+        log(f"K3 launch (C, H, W, T) = {(C, H, W, T)}, B={B}, {p.blur_stack_instantiation(taps)} "
+            f"instantiation: {launch_ms:.4f} ms, bound {launch_bound:.4f} ms ({launch_by}), "
+            f"{launch_bound / launch_ms:.1%} of the bound, on {card}")
         del out_k, out_p, img
     log(f"band-matmul pyramid at K3's shapes (blur_2d + build_gaussian_octave, what "
         f"pyramid_impl='auto' runs instead): {t_m / CHUNK:.4f} ms/frame on {card}")

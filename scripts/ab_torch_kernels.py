@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Device times of K1 and K2 in two trees of the port, on one card, in turns.
+"""Device times of K1, K2 and K3 in two trees of the port, on one card, in turns.
 
     python3 scripts/ab_torch_kernels.py --parent DIR [--rounds 2]
 
@@ -7,9 +7,13 @@ DIR holds another checkout of the repo (for instance `git archive <commit>`
 unpacked into a git-ignored directory). The script starts one worker process
 per tree, in the order parent, this tree, this tree, parent, `--rounds`
 times over. A worker imports the port from its own tree, builds that tree's
-kernels, and times `match_top2` at 4096 x 4096 x 128 and `extract_patches`
+kernels, and times `match_top2` at 4096 x 4096 x 128, `extract_patches`
 at the main path's three octave shapes (a frame's three launches, each and
-summed).
+summed), and `blur_stack` at the KITTI-gates path's five launch shapes
+(B = 8; each, and summed divided by 8 for a frame's share). On the same
+seeded inputs it also takes a SHA-256 digest of K3's output bytes at those
+shapes and at chip_smoke.py's extra K3 shapes; the summary says whether the
+two trees' K3 outputs are bit-equal at every shape.
 
 Times are device times, taken with chip_smoke.py's `time_ms` of this tree: a
 batch of calls is queued behind a spin kernel that keeps the card busy while
@@ -71,9 +75,30 @@ def worker(root: str) -> int:
             raise AssertionError(f"K2 disagrees with its plain version at {(L, H, W)}")
         k2.append(cs.time_ms(torch, lambda: p.extract_patches(
             field, lvl, y0, x0, PATCH_Y, PATCH_X, check_bounds=False), batches=5))
+    k3, digests = _blur_stack(torch, cs, dev)
     print(json.dumps({"tree": root, "match_top2_ms": k1, "extract_patches_ms": sum(k2),
-                      "extract_patches_ms_by_launch": k2}), flush=True)
+                      "extract_patches_ms_by_launch": k2, "blur_stack_ms": sum(k3) / cs.CHUNK,
+                      "blur_stack_ms_by_launch": k3, "blur_stack_sha256": digests}), flush=True)
     return 0
+
+
+def _blur_stack(torch, cs, dev):
+    """K3's device time at each KITTI-gates launch shape, and the digests of
+    its outputs at those and the extra shapes, on inputs seeded per shape."""
+    import hashlib
+
+    from visualodometry_tpu_torch.ops import pyramid as py
+
+    times, digests = [], {}
+    for C, H, W in cs.GATES_BLUR_SHAPES + cs.EXTRA_BLUR_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(C * 100003 + H * 1009 + W)
+        img = torch.rand(cs.CHUNK, H, W, generator=g, device=dev)
+        taps = cs._blur_taps(C, H)
+        out = py.blur_stack(img, taps)
+        digests[f"{C}x{H}x{W}"] = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()
+        if (C, H, W) in cs.GATES_BLUR_SHAPES:
+            times.append(cs.time_ms(torch, lambda: py.blur_stack(img, taps), batches=5))
+    return times, digests
 
 
 def main() -> int:
@@ -109,7 +134,14 @@ def main() -> int:
         mine = [r for r in rows if r["tree"] == root]
         summary[name] = {k: np.median([r[k] for r in mine], axis=0).tolist()
                          for k in ("match_top2_ms", "extract_patches_ms",
-                                   "extract_patches_ms_by_launch")}
+                                   "extract_patches_ms_by_launch", "blur_stack_ms",
+                                   "blur_stack_ms_by_launch")}
+    # every run of both trees must give the same K3 bytes at every shape
+    digests = [r["blur_stack_sha256"] for r in rows]
+    summary["blur_stack_bit_equal"] = {
+        shape: len({d[shape] for d in digests}) == 1 for shape in digests[0]
+    }
+    summary["blur_stack_bit_equal_everywhere"] = all(summary["blur_stack_bit_equal"].values())
     print(json.dumps(summary), flush=True)
     return 0
 

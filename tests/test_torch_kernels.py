@@ -285,18 +285,103 @@ def test_extract_patches_adds_no_sync(cuda_device):
 
 
 # (B, C, H, W): the octave and base shapes of the 1226 x 370 paths (first
-# octave -1 and 0), and a ragged one
+# octave -1 and 0), a ragged one, the most channels the pyramid gives (C = 8,
+# sift_scales_per_octave=6) at a row pitch that is not 16-byte aligned, a
+# height that is not a multiple of the 128- or 64-row tile at W = 1226
+# (pitch not 16-byte aligned either), and images smaller than the halo
 BLUR_SHAPES = [
     (8, 5, 740, 2452), (8, 5, 370, 1226), (8, 5, 185, 613), (8, 5, 93, 307),
     (8, 5, 47, 154), (8, 1, 740, 2452), (8, 1, 370, 1226), (3, 5, 70, 130),
+    (2, 8, 70, 153), (2, 5, 200, 1226), (3, 5, 3, 5), (2, 1, 3, 5),
 ]
 
 
 def _blur_taps(C, upsampled=True):
     if C > 1:
-        return py._stack_taps(3, 1.6)
+        return py._stack_taps(C - 2, 1.6)  # C = scales + 2
     sig = (1.6**2 - (1.0 if upsampled else 0.5) ** 2) ** 0.5
     return (tuple(py._full_kernel_np(sig, int(np.ceil(3.0 * sig))).tolist()),)
+
+
+def _radius_taps(radius, C):
+    """C Gaussian tap rows of one radius, each of another sigma."""
+    return tuple(
+        tuple(py._full_kernel_np(radius / 3.0 * (1 + 0.1 * c), radius).tolist())
+        for c in range(C)
+    )
+
+
+def test_blur_stack_rejects_radius_above_64():
+    """The JAX kernel asserts radius <= 64; the wrapper raises on every device."""
+    img = torch.zeros(2, 8, 8)
+    with pytest.raises(ValueError, match="radius"):
+        py.blur_stack(img, _radius_taps(65, 2))
+    assert py.blur_stack(img, _radius_taps(64, 2)).shape == (2, 2, 8, 8)
+    with pytest.raises(ValueError):
+        py.blur_stack(img, ((0.25, 0.5, 0.25), (1.0,)))  # rows of two lengths
+    with pytest.raises(ValueError):
+        py.blur_stack(img, ())
+
+
+@pytest.mark.parametrize(
+    "taps,C,TP,RA",
+    [
+        (py._stack_taps(3, 1.6), 5, 32, 16),  # the octave stack: 31 taps, R = 15
+        (_blur_taps(1, upsampled=True), 1, 12, 4),  # base pre-blur, 9 taps
+        (_blur_taps(1, upsampled=False), 1, 16, 8),  # first octave 0: 11 taps
+        (py._stack_taps(1, 1.6), 3, 80, 40),  # sift_scales_per_octave=1: R = 39
+        (py._stack_taps(6, 1.6), 8, 32, 12),  # sift_scales_per_octave=6: R = 12
+        (_radius_taps(64, 2), 2, 132, 64),
+        (_radius_taps(1, 2), 2, 8, 4),
+        (((0.0,) * 3 + (1.0,) + (0.0,) * 3,), 1, 8, 4),  # R = 3: one leading zero
+    ],
+)
+def test_blur_stack_tap_packing(taps, C, TP, RA):
+    """The taps the launcher receives by value: float32, (C, TP) in channel
+    order, each row after (-R) mod 4 leading zeros and zero-padded to TP, one
+    of the padded counts the kernel is built for; RA = R + the leading zeros,
+    a multiple of 4."""
+    packed, ra = py._pack_taps(taps)
+    T = len(taps[0])
+    R = (T - 1) // 2
+    lead = ra - R
+    assert packed.dtype == np.float32 and packed.flags["C_CONTIGUOUS"]
+    assert packed.shape == (C, TP) and TP in py.TAP_COUNTS and ra == RA
+    assert ra % 4 == 0 and 0 <= lead < 4 and lead + T <= TP
+    assert not packed[:, :lead].any() and not packed[:, lead + T :].any()
+    np.testing.assert_array_equal(packed[:, lead : lead + T], np.asarray(taps, np.float32))
+    # the smallest padded count that holds the row
+    assert all(n < lead + T for n in py.TAP_COUNTS if n < TP)
+
+
+def _blur_stack_padded(bases, packed, RA):
+    """The plain version's two tap-order sums over the packed taps: tap t of a
+    row reads offset t - RA, as the kernel does."""
+    C, TP = packed.shape
+    B, H, W = bases.shape
+    w = torch.as_tensor(packed).reshape(1, C, 1, 1, TP)
+    pad = TP - 1 - RA  # the far side: taps past the row's end
+    x = torch.nn.functional.pad(bases[:, None], (RA, pad, RA, pad), mode="replicate")
+    h = w[..., 0] * x[..., 0:W]
+    for t in range(1, TP):
+        h = h + w[..., t] * x[..., t : t + W]
+    out = w[..., 0] * h[:, :, 0:H]
+    for t in range(1, TP):
+        out = out + w[..., t] * h[:, :, t : t + H]
+    return out
+
+
+@pytest.mark.parametrize("C", [1, 3, 5, 8])
+def test_blur_stack_padded_taps_give_the_same_bits(C):
+    """The zeros the packing adds, leading and trailing, change no bit of a
+    tap-order sum that starts from the first product: the plain version's
+    sums over the packed taps equal its sums over the taps as given."""
+    rng = np.random.default_rng(C)
+    img = torch.as_tensor(rng.random((2, 21, 37)).astype(np.float32))
+    taps = _blur_taps(C, upsampled=False)
+    packed, RA = py._pack_taps(taps)
+    want = py._blur_stack_torch(img, torch.tensor(taps))
+    assert torch.equal(_blur_stack_padded(img, packed, RA), want)
 
 
 @pytest.mark.cuda
@@ -318,15 +403,36 @@ def test_blur_stack_kernel_matches_plain(cuda_device, B, C, H, W):
 
 
 @pytest.mark.cuda
-def test_blur_stack_other_radii_on_card(cuda_device):
-    """Tap counts that are and are not multiples of the kernel's step,
-    and a radius whose tile needs more than 48 KB of shared memory."""
+@pytest.mark.parametrize(
+    "radius,C", [(1, 2), (2, 2), (6, 2), (30, 2), (64, 2), (39, 3), (12, 8), (19, 4)]
+)
+def test_blur_stack_other_radii_on_card(cuda_device, radius, C):
+    """Tap counts that are and are not multiples of the kernel's step, the
+    largest radius (64), and the radii sift_scales_per_octave 1, 2 and 6
+    give, at a height that is no multiple of any tile and a row pitch that is
+    not 16-byte aligned."""
     rng = np.random.default_rng(3)
-    img = torch.as_tensor(rng.random((2, 50, 90)).astype(np.float32), device=cuda_device)
-    for radius in (1, 2, 6, 30):
-        taps = (tuple(py._full_kernel_np(radius / 3.0, radius).tolist()),) * 2
-        ref = py._blur_stack_torch(img, torch.tensor(taps, device=cuda_device))
-        assert float((py.blur_stack(img, taps) - ref).abs().max()) <= 1e-5
+    img = torch.as_tensor(rng.random((2, 150, 90)).astype(np.float32), device=cuda_device)
+    taps = _radius_taps(radius, C)
+    ref = py._blur_stack_torch(img, torch.tensor(taps, device=cuda_device))
+    assert float((py.blur_stack(img, taps) - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_blur_stack_instantiations(cuda_device):
+    """The pyramid's pairs run instantiations of their own; other C take the
+    generic one; more than 8 channels raise on CUDA (the CPU takes any)."""
+    assert py.blur_stack_instantiation(py._stack_taps(3, 1.6)) == "specialised"
+    assert py.blur_stack_instantiation(_blur_taps(1, upsampled=True)) == "specialised"
+    assert py.blur_stack_instantiation(_blur_taps(1, upsampled=False)) == "specialised"
+    assert py.blur_stack_instantiation(py._stack_taps(1, 1.6)) == "generic"
+    assert py.blur_stack_instantiation(_radius_taps(64, 2)) == "generic"
+    img = torch.zeros(1, 16, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="channels"):
+        py.blur_stack(img, _radius_taps(3, 9))
+    with pytest.raises(ValueError, match="radius"):
+        py.blur_stack(img, _radius_taps(65, 2))
+    assert py.blur_stack(img.cpu(), _radius_taps(3, 9)).shape == (1, 9, 16, 16)
 
 
 @pytest.mark.cuda

@@ -22,7 +22,10 @@ and this one does not is dropped: the halo rounded up to a multiple of 4
 and the fixed 32-row tile of Mosaic's DMA alignment, the 64/128-lane
 padding, and `_pallas_blur_fits` with its fall-back to band matmuls when
 the upsampled base octave overflowed scoped VMEM. The CUDA kernel takes
-every shape, so `impl="pallas"` never runs a band matmul here.
+every image shape, radii up to 64 (the limit the JAX kernel asserts, held
+on every device) and up to 8 channels (the pyramid makes 3-8), so
+`impl="pallas"` never runs a band matmul here. Its taps travel by value:
+`_pack_taps` lays them out as the launch receives them.
 """
 
 from __future__ import annotations
@@ -140,12 +143,51 @@ def _stack_taps(scales: int, sigma0: float) -> tuple[tuple[float, ...], ...]:
     )
 
 
+# the largest radius the kernel takes, as the JAX kernel asserts
+MAX_RADIUS = 64
+# the most channels the kernel takes (the pyramid gives 3-8)
+MAX_CHANNELS = 8
+# padded tap counts the kernel is built for: the pyramid's 12, 16 and 32,
+# and enough others to take every radius up to MAX_RADIUS
+TAP_COUNTS = (8, 12, 16, 24, 32, 40, 48, 64, 80, 96, 112, 132)
+
+
+def _check_taps(taps: tuple[tuple[float, ...], ...]) -> tuple[int, int]:
+    """(C, T) of a tap set, or ValueError: C rows of one odd length with
+    radius (T - 1) / 2 <= MAX_RADIUS."""
+    lengths = {len(row) for row in taps}
+    if not taps or len(lengths) != 1 or lengths.pop() % 2 != 1:
+        raise ValueError("blur_stack: taps must be C rows of one odd length")
+    C, T = len(taps), len(taps[0])
+    if (T - 1) // 2 > MAX_RADIUS:
+        raise ValueError(f"blur_stack: radius {(T - 1) // 2} > {MAX_RADIUS}")
+    return C, T
+
+
 @lru_cache(maxsize=None)
 def _taps_on(taps: tuple[tuple[float, ...], ...], device: torch.device) -> torch.Tensor:
-    t = torch.tensor(taps, dtype=torch.float32)
-    if t.dim() != 2 or t.shape[1] % 2 != 1:
-        raise ValueError("blur_stack: taps must be C rows of one odd length")
-    return t.to(device)
+    """The (C, T) taps as a float32 tensor, for the plain version."""
+    _check_taps(taps)
+    return torch.tensor(taps, dtype=torch.float32).to(device)
+
+
+@lru_cache(maxsize=None)
+def _pack_taps(taps: tuple[tuple[float, ...], ...]) -> tuple[np.ndarray, int]:
+    """The taps as the kernel receives them, by value: (C, TP) float32, each
+    row after (-R) mod 4 leading zeros and zero-padded to TP, the smallest
+    of TAP_COUNTS that holds it; and RA, R plus the leading zeros.
+
+    A zero tap adds exactly nothing to a finite sum that starts at 0.0, so
+    the kernel's tap-order chains give the unpadded result bit for bit;
+    the leading zeros make the tile's left edge x0 - RA a multiple of 4.
+    """
+    C, T = _check_taps(taps)
+    R = (T - 1) // 2
+    lead = -R % 4
+    TP = next(n for n in TAP_COUNTS if n >= lead + T)
+    packed = np.zeros((C, TP), np.float32)
+    packed[:, lead : lead + T] = np.asarray(taps, np.float32)
+    return packed, R + lead
 
 
 def _blur_stack_torch(bases: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
@@ -182,26 +224,45 @@ def blur_stack(bases: torch.Tensor, taps: tuple[tuple[float, ...], ...]) -> torc
         raise TypeError("blur_stack: bases must be (..., H, W) float32")
     lead = bases.shape[:-2]
     H, W = bases.shape[-2:]
-    tap_t = _taps_on(taps, bases.device)
-    C, T = tap_t.shape
+    C, T = _check_taps(taps)
     flat = bases.reshape(-1, H, W)
     if bases.device.type == "cpu":
-        return _blur_stack_torch(flat, tap_t).reshape(*lead, C, H, W)
+        return _blur_stack_torch(flat, _taps_on(taps, bases.device)).reshape(*lead, C, H, W)
     if bases.device.type != "cuda":
         raise ValueError(f"blur_stack: unsupported device {bases.device}")
+    if C > MAX_CHANNELS:
+        raise ValueError(f"blur_stack: {C} channels > {MAX_CHANNELS}")
+    packed, RA = _pack_taps(taps)
     flat = flat.contiguous()
     out = torch.empty((flat.shape[0], C, H, W), dtype=torch.float32, device=bases.device)
-    lib = _build.load_library("blur_stack")
-    fn = lib.blur_stack_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = _library().blur_stack_launch
     err = fn(
-        flat.data_ptr(), tap_t.data_ptr(), out.data_ptr(),
-        flat.shape[0], C, T, H, W, _build.current_stream_handle(bases.device),
+        flat.data_ptr(), packed.ctypes.data, out.data_ptr(), flat.shape[0], C,
+        packed.shape[1], RA, H, W, _build.current_stream_handle(bases.device),
     )
     _build.check_launch("blur_stack", err)
     launches += 1
     return out.reshape(*lead, C, H, W)
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load_library("blur_stack")
+    lib.blur_stack_launch.restype = ctypes.c_int
+    lib.blur_stack_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    )
+    lib.blur_stack_variant.restype = ctypes.c_int
+    lib.blur_stack_variant.argtypes = [ctypes.c_int] * 2
+    return lib
+
+
+def blur_stack_instantiation(taps: tuple[tuple[float, ...], ...]) -> str:
+    """Which build of the kernel a launch with these taps runs: "specialised"
+    (compiled for its (C, TP)) or "generic" (C at run time). Asks the built
+    library, so it needs nvcc."""
+    packed, _ = _pack_taps(taps)
+    v = _library().blur_stack_variant(*packed.shape)
+    return {1: "specialised", 0: "generic"}.get(v, "none")
 
 
 def build_gaussian_octave_pallas(
