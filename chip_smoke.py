@@ -47,7 +47,25 @@ Phases (any failed check raises, so the script exits non-zero):
      tracking A/B of the two pyramid routes, with its limits on resets
      outside the explained window (GATES_UNEXPLAINED_*);
   9. `VOEngine` per frame on the first 16 frames of the 32-frame fixture,
-     with a save_state / load_state round trip at frame 8.
+     with a save_state / load_state round trip at frame 8;
+ 10. the SuperPoint path: `get_config("kitti", "superpoint")` with
+     bench.py:_build_superpoint_cfg's overrides (2048 slots, P3P, the dense
+     SuperPoint weights, bf16 network, Lowe 0.92) on the same 32 frames in
+     4 chunks of 8: counts zeroed before and read after (K1 x 32, K2 x 0,
+     K3 x 0), resets == 0, sim3 ATE (frames 8:) <= 0.10 m, keyframes at
+     least the JAX package's CPU count less 3 (scripts/learned_jax_cpu.py);
+     the device busy times (profiler) of the network (B = 8), of keypoint
+     selection and of the matcher, the step's wall time, and a second,
+     timed pass;
+ 11. the attention path: BENCH_CFG with the attention matcher (the v2
+     weights, `adaptive_match` with pruning to 1024 and exit at 0.95, bf16):
+     K2 x 96, K1 x 0, K3 x 0, resets == 0, sim3 ATE <= 0.05 m, keyframes as
+     above; the same times (SIFT extraction in place of network and
+     selection);
+ 12. `VOEngine` with SuperPoint on the first 16 frames: no reset, finite
+     positions.
+K1 is also held against its plain version at the SuperPoint path's shape,
+2048 x 2048 x 256, and timed there, on a log line of its own (phase 2).
 
 The last two lines are the kernel table as one JSON object and the
 contract line {"ok": true, "device": {...}}. Exits non-zero without a CUDA
@@ -123,6 +141,30 @@ SIFT_SIGMA, SIFT_SCALES = 1.6, 3
 GATES_UNEXPLAINED_MATMUL = 0
 GATES_UNEXPLAINED_K3_MARGIN = 1
 
+# the learned paths: bench.py:_build_superpoint_cfg's overrides on
+# get_config("kitti", "superpoint") (the port's matcher is K1 on CUDA
+# whatever matcher_backend says), and BENCH_CFG with the attention matcher
+SP_OVERRIDES = dict(
+    min_median_flow=3.0,
+    max_reproj_err=2.0,
+    pnp_reproj_err=2.0,
+    min_depth=1.0,
+    lowe_ratio=0.92,
+    min_parallax_deg=0.35,
+    matcher_backend="jnp",
+)
+# Limits. ATE: the JAX reference's TPU records are 0.027 m (SuperPoint) and
+# 0.012 m (attention) (BENCH_r05.json); tracking failures show as
+# metre-class ATE. Keyframes: the JAX package on the CPU over the same
+# frames (scripts/learned_jax_cpu.py) less LEARNED_KF_MARGIN, for gate
+# flags that flip at marginal flows.
+SP_ATE_LIMIT = 0.10
+AT_ATE_LIMIT = 0.05
+SP_JAX_CPU_KEYFRAMES = 31
+AT_JAX_CPU_KEYFRAMES = 31
+LEARNED_KF_MARGIN = 3
+K1_SP_SHAPE = (2048, 2048, 256)
+
 
 def log(*args):
     print(*args, flush=True)
@@ -150,6 +192,9 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3, batches: int = 3) -> flo
     calls then run back to back, and the reading is the device's time, not
     the host's time to launch (which is several times longer for the small
     kernels). The spin is sized from the measured enqueue time of a batch.
+    A batch must stay under the card's queue of pending launches (about a
+    thousand): beyond it the host waits for the spin and the reading becomes
+    the host's time; `busy_ms` measures the stages of many launches.
     """
     global _SPIN_CYCLES_PER_MS
     if _SPIN_CYCLES_PER_MS is None:
@@ -181,6 +226,41 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3, batches: int = 3) -> flo
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
+
+
+def union_us(ranges) -> float:
+    """Total length of the union of [start, end) intervals (microseconds)."""
+    total = 0.0
+    end_max = None
+    for s, e in sorted(ranges):
+        if end_max is None or s > end_max:
+            total += e - s
+            end_max = e
+        elif e > end_max:
+            total += e - end_max
+            end_max = e
+    return total
+
+
+def busy_ms(torch, fn) -> float:
+    """Device busy time of one call of `fn`, in milliseconds: the union of
+    its kernels' intervals under torch.profiler, after one warm-up call.
+
+    For stages of hundreds to thousands of small launches, where `time_ms`
+    cannot hold its batch behind the spin: the card's launch queue fills
+    after about a thousand launches, the host then waits for the spin, and
+    the reading becomes the host's time. Gaps between kernels are not
+    counted, so this is the device's own time and no more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    check(len(kernels) > 0, "the profiler recorded no device time")
+    return union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
 
 
 def _k1_parity(torch, m, d0, d1, valid1, what: str, abs_limit: float | None = None) -> float:
@@ -222,7 +302,7 @@ def _k1_parity(torch, m, d0, d1, valid1, what: str, abs_limit: float | None = No
     return err
 
 
-def phase_match(torch, dev):
+def phase_match(torch, dev, card):
     from visualodometry_tpu_torch.ops import match_top2 as m
 
     g = torch.Generator(device=dev).manual_seed(0)
@@ -260,6 +340,8 @@ def phase_match(torch, dev):
     err = max(err, _k1_parity(torch, m, d0[:4001], d1[:cut], valid1[:cut],
                               f"4001 x {cut} x {d}, ragged"))
 
+    _k1_superpoint_shape(torch, m, dev, card)
+
     def library():
         dist = torch.cdist(d0, d1)
         d2 = (dist * dist).masked_fill(~valid1[None, :], 1e30)
@@ -286,6 +368,33 @@ def phase_match(torch, dev):
         bound_peak="tensor operations: 3 TF32 products per float32 product at 495 TFLOP/s",
         bound_f32_cores_ms=flops / PEAK_F32_FLOPS * 1e3,
     )
+
+
+def _k1_superpoint_shape(torch, m, dev, card):
+    """K1 at the SuperPoint path's shape: parity (as at 128-D), device time,
+    and its bound, on a log line of its own."""
+    n0, n1, d = K1_SP_SHAPE
+    g = torch.Generator(device=dev).manual_seed(3)
+    d0 = torch.randn(n0, d, generator=g, device=dev)
+    d1 = torch.randn(n1, d, generator=g, device=dev)
+    d0 /= d0.norm(dim=1, keepdim=True)
+    d1 /= d1.norm(dim=1, keepdim=True)
+    # near-duplicates at the 128-D case's distances, so the ratio test has
+    # real matches and no distance sits near zero
+    d1[: n1 // 2] = d0[: n1 // 2] + 0.05 * torch.randn(n1 // 2, d, generator=g, device=dev)
+    d1 /= d1.norm(dim=1, keepdim=True)
+    valid1 = torch.rand(n1, generator=g, device=dev) >= 0.1
+    err = _k1_parity(torch, m, d0, d1, valid1, f"{n0} x {n1} x {d} unit vectors")
+    t_k = time_ms(torch, lambda: m.match_top2(d0, d1, valid1))
+    t_p = time_ms(torch, lambda: m._top2_torch(d0, d1, valid1))
+    splits = m._splits(n0, n1, torch.cuda.get_device_properties(dev).multi_processor_count)
+    t_ops = 3.0 * 2.0 * n0 * n1 * d / PEAK_TF32_FLOPS
+    t_bytes = ((n0 + n1) * d * 4 + n1 + n0 * 12 + 2 * splits * n0 * 12) / PEAK_BYTES
+    b = max(t_ops, t_bytes) * 1e3
+    log(f"K1 at the SuperPoint path's shape {n0} x {n1} x {d}: max abs err {err:.3e}, "
+        f"kernel_ms {t_k:.4f}, plain_ms {t_p:.4f}, bound_ms {b:.4f} "
+        f"({'operations' if t_ops > t_bytes else 'bytes'}, 3 TF32 products per float32 "
+        f"product), {b / t_k:.1%} of the bound, {splits} splits, on {card}")
 
 
 def phase_match_real(torch, dev, u8):
@@ -620,6 +729,116 @@ def phase_engine(torch, dev, scene, u8, tmp_dir):
     check(diff <= 0.01 * length, f"resumed engine left the uninterrupted track: {diff}")
 
 
+def superpoint_config():
+    from visualodometry_tpu_torch import get_config
+
+    return get_config("kitti", extractor="superpoint").replace(**SP_OVERRIDES)
+
+
+def attention_config():
+    from visualodometry_tpu_torch import config_from_dict
+
+    return config_from_dict(BENCH_CFG).replace(matcher_type="attention")
+
+
+def phase_learned(torch, dev, card, scene, u8, name: str):
+    """One learned path on the 32-frame fixture: tracking, launches, times."""
+    from visualodometry_tpu_torch.core import init_state, make_chunked_pipeline_fn
+    from visualodometry_tpu_torch.eval import ate_rmse
+    from visualodometry_tpu_torch.frontend.superpoint import _pad_to_multiple
+    from visualodometry_tpu_torch.models.superpoint import select_keypoints, superpoint_heads
+
+    sp = name == "superpoint"
+    cfg = superpoint_config() if sp else attention_config()
+    desc_dim = 256 if sp else 128
+    chunks = [torch.as_tensor(u8[i : i + CHUNK]).to(dev) for i in range(0, N_FRAMES, CHUNK)]
+
+    def run_pass():
+        run = make_chunked_pipeline_fn(cfg, scene.K, device=dev)
+        state = init_state(cfg, desc_dim=desc_dim, device=dev)
+        outs = []
+        for c in chunks:
+            state, out = run(state, c)
+            outs.append(out)
+        torch.cuda.synchronize()
+        return run, state, outs
+
+    zero_launches()
+    t0 = time.perf_counter()
+    run, state, outs = run_pass()
+    first_s = time.perf_counter() - t0
+    launches = read_launches()
+    est = torch.cat([o.T_wc for o in outs])[:, :3, 3].cpu().numpy()
+    resets = int(sum(int(o.did_reset.sum()) for o in outs))
+    keyframes = int(sum(int(o.is_keyframe.sum()) for o in outs))
+    ate = float(ate_rmse(est[8:], scene.gt_positions[8 : len(est)], align="sim3"))
+    log(f"{name} path: {N_FRAMES} frames, {cfg.padded_keypoints} slots, resets {resets}, "
+        f"keyframes {keyframes}, sim3 ATE {ate:.6f} m, launches {launches}, first pass "
+        f"{first_s:.2f} s")
+    ate_limit = SP_ATE_LIMIT if sp else AT_ATE_LIMIT
+    jax_kf = SP_JAX_CPU_KEYFRAMES if sp else AT_JAX_CPU_KEYFRAMES
+    check(bool(np.isfinite(est).all()), f"{name} path produced non-finite poses")
+    check(resets == 0, f"{name} path reset {resets} times")
+    check(ate <= ate_limit, f"{name} path sim3 ATE {ate:.4f} m > {ate_limit} m")
+    check(keyframes >= jax_kf - LEARNED_KF_MARGIN,
+          f"{name} path made {keyframes} keyframes; the JAX package makes {jax_kf}")
+    want = ({"match_top2": N_FRAMES, "extract_patches": 0, "blur_stack": 0} if sp
+            else {"match_top2": 0, "extract_patches": 3 * N_FRAMES, "blur_stack": 0})
+    check(launches == want, f"{name} path launched {launches}, not {want}")
+
+    # device busy time of the stages on the first chunk, a frame's share
+    feats = run.extract(chunks[0])
+    if sp:
+        model, thr = run.extract.model, run.extract.threshold
+        x = _pad_to_multiple(chunks[0].float() * (1.0 / 255.0))
+        with torch.no_grad():
+            heat, desc = superpoint_heads(model, x)
+            t_net = busy_ms(torch, lambda: superpoint_heads(model, x))
+            t_sel = busy_ms(torch, lambda: [
+                select_keypoints(heat[i], desc[i], cfg.padded_keypoints, thr)
+                for i in range(CHUNK)])
+        stages = (f"network (B={CHUNK}, bf16) {t_net / CHUNK:.4f} ms/frame, keypoint "
+                  f"selection {t_sel / CHUNK:.4f} ms/frame")
+    else:
+        t_ext = busy_ms(torch, lambda: run.extract(chunks[0]))
+        stages = f"SIFT extraction {t_ext / CHUNK:.4f} ms/frame"
+    t_match = busy_ms(torch, lambda: run.step.match(state.keyframe, feats[1]))
+    # the VO step alone, host clock over the 32 frames (it reads branch
+    # scalars back, so it cannot be queued behind a spin)
+    all_feats = [f for c in chunks for f in run.extract(c)]
+    st = init_state(cfg, desc_dim=desc_dim, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in all_feats:
+        st, _ = run.step(st, f)
+    torch.cuda.synchronize()
+    t_step = (time.perf_counter() - t0) * 1e3 / N_FRAMES
+    del all_feats, st
+
+    t0 = time.perf_counter()
+    run_pass()
+    dt = time.perf_counter() - t0
+    log(f"{name} path device busy times: {stages}, matcher {t_match:.4f} ms/frame; VO step "
+        f"alone {t_step:.2f} ms/frame (wall); second pass {N_FRAMES / dt:.3f} frames/s "
+        f"({dt:.3f} s for {N_FRAMES} frames); on {card}")
+
+
+def phase_engine_superpoint(torch, dev, scene, u8):
+    """`VOEngine` with the SuperPoint extractor, per frame, first 16 frames."""
+    from visualodometry_tpu_torch.core import VOEngine
+
+    engine = VOEngine(scene.K, superpoint_config(), device=dev)
+    outs = [engine.process_frame(img) for img in u8[:16]]
+    pos = engine.positions()
+    resets = sum(bool(o.did_reset) for o in outs)
+    log(f"VOEngine with SuperPoint: 16 frames, desc_dim {engine.desc_dim}, keyframes "
+        f"{sum(bool(o.is_keyframe) for o in outs)}, resets {resets}, tracking "
+        f"{bool(outs[-1].initialized)}")
+    check(resets == 0, f"VOEngine with SuperPoint reset {resets} times")
+    check(pos.shape == (16, 3) and bool(np.isfinite(pos).all()),
+          "VOEngine with SuperPoint: positions")
+
+
 def zero_launches():
     from visualodometry_tpu_torch.ops import match_top2, patches, pyramid
 
@@ -658,10 +877,15 @@ def main() -> int:
 
     from visualodometry_tpu_torch.data.synthetic import make_marathon_fixture
 
-    kernels = [phase_match(torch, dev), phase_patches(torch, dev), phase_blur(torch, dev, smi)]
+    kernels = [phase_match(torch, dev, smi), phase_patches(torch, dev),
+               phase_blur(torch, dev, smi)]
     launches, scene, u8 = phase_main_path(torch, dev, smi)
     phase_match_real(torch, dev, u8)
     phase_engine(torch, dev, scene, u8, os.environ.get("TMPDIR", "/tmp"))
+    phase_learned(torch, dev, smi, scene, u8, "superpoint")
+    phase_learned(torch, dev, smi, scene, u8, "attention")
+    phase_engine_superpoint(torch, dev, scene, u8)
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     g_u8, g_gt, g_K, _ = make_marathon_fixture(num_frames=GATES_FRAMES, blanks=(GATES_BLANK,))

@@ -2,11 +2,13 @@
 """Where the port's main path spends its time on one NVIDIA GPU.
 
 Run from the root of a checkout:
-    python3 scripts/profile_torch_main_path.py [--path main|kitti_gates]
-                                               [--pyramid-impl auto|pallas]
+    python3 scripts/profile_torch_main_path.py
+        [--path main|kitti_gates|superpoint|attention] [--pyramid-impl auto|pallas]
 
 `--path main` (default): the bench configuration (chip_smoke.BENCH_CFG) on
-the 32-frame textured fixture. `--path kitti_gates`: chip_smoke's
+the 32-frame textured fixture. `--path superpoint` and `--path attention`:
+chip_smoke's learned paths on the same frames (SuperPoint with the ratio
+matcher; SIFT with the attention matcher). `--path kitti_gates`: chip_smoke's
 KITTI-gates configuration on frames 96-151 of its marathon fixture (the
 blackout at 120-123 included), so reset, re-bootstrap and init frames are
 in the counts. `--pyramid-impl` is handed to the pipeline. After one
@@ -20,7 +22,9 @@ warm-up pass:
     time is longer than an unprofiled one), and the operators that take
     the most device time;
   - with `--path kitti_gates`, the host synchronisations of the step frame
-    by frame, grouped by what the frame did.
+    by frame, grouped by what the frame did;
+  - with `--path superpoint` or `attention`, the operators that take the
+    device time of one chunk's extraction and of one frame's matching.
 
 Prints the card's name and power limit beside the numbers. Needs CUDA.
 """
@@ -41,7 +45,8 @@ sys.path.insert(0, ROOT)
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("main", "kitti_gates"), default="main")
+    ap.add_argument("--path", choices=("main", "kitti_gates", "superpoint", "attention"),
+                    default="main")
     ap.add_argument("--pyramid-impl", choices=("auto", "pallas"), default="auto")
     args = ap.parse_args()
     impl = args.pyramid_impl
@@ -54,13 +59,11 @@ def main() -> int:
     import chip_smoke as cs
     from visualodometry_tpu_torch import config_from_dict
     from visualodometry_tpu_torch.core import init_state, make_chunked_pipeline_fn
-    from visualodometry_tpu_torch.core.step import make_step_fn
     from visualodometry_tpu_torch.data.synthetic import (
         make_marathon_fixture,
         make_scene,
         render_fixture_u8,
     )
-    from visualodometry_tpu_torch.frontend.sift import make_batched_extract_fn
     from visualodometry_tpu_torch.ops import _build
 
     card = subprocess.run(
@@ -70,36 +73,39 @@ def main() -> int:
     print(card, flush=True)
     _build.build_all()
     dev = torch.device("cuda", 0)
-    if args.path == "main":
+    if args.path != "kitti_gates":
         scene = make_scene(np.random.default_rng(7), num_frames=cs.N_FRAMES, speed=1.2,
                            turn_rate=0.002, image_size=cs.IMG_SIZE)
         u8, K = render_fixture_u8(scene), scene.K
-        cfg = config_from_dict(cs.BENCH_CFG)
+        cfg = {"main": lambda: config_from_dict(cs.BENCH_CFG),
+               "superpoint": cs.superpoint_config,
+               "attention": cs.attention_config}[args.path]()
     else:
         first, last = 96, 152
         u8, _, K, _ = make_marathon_fixture(num_frames=last, blanks=(cs.GATES_BLANK,))
         u8 = u8[first:]
         cfg = cs.gates_config()
     n = len(u8)
+    desc_dim = 256 if cfg.extractor_type == "superpoint" else 128
     chunks = [torch.as_tensor(u8[i : i + cs.CHUNK]).to(dev) for i in range(0, n, cs.CHUNK)]
     print(f"path {args.path}, pyramid_impl {impl}, {n} frames", flush=True)
 
     def full_pass():
         run = make_chunked_pipeline_fn(cfg, K, device=dev, pyramid_impl=impl)
-        st = init_state(cfg, desc_dim=128, device=dev)
+        st = init_state(cfg, desc_dim=desc_dim, device=dev)
         for c in chunks:
             st, _ = run(st, c)
         torch.cuda.synchronize()
+        return run
 
     full_pass()  # warm-up: kernels loaded, band matrices on the device
     t0 = time.perf_counter()
-    full_pass()
+    run = full_pass()
     t_pass = time.perf_counter() - t0
 
-    extract = make_batched_extract_fn(cfg, device=dev, pyramid_impl=impl)
-    step = make_step_fn(cfg, K, device=dev)
+    extract, step = run.extract, run.step
     t_ext = t_step = 0.0
-    st = init_state(cfg, desc_dim=128, device=dev)
+    st = init_state(cfg, desc_dim=desc_dim, device=dev)
     feats_by_chunk = []
     for c in chunks:
         torch.cuda.synchronize()
@@ -123,8 +129,8 @@ def main() -> int:
     syncs = {"extract": 0, "step": 0}
     sites = collections.Counter()
     per_frame = []  # (step syncs, output) of every frame
-    step = make_step_fn(cfg, K, device=dev)
-    st = init_state(cfg, desc_dim=128, device=dev)
+    step = make_chunked_pipeline_fn(cfg, K, device=dev, pyramid_impl=impl).step
+    st = init_state(cfg, desc_dim=desc_dim, device=dev)
     torch.cuda.set_sync_debug_mode("warn")
     try:
         for c in chunks:
@@ -168,7 +174,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     run = make_chunked_pipeline_fn(cfg, K, device=dev, pyramid_impl=impl)
-    st = init_state(cfg, desc_dim=128, device=dev)
+    st = init_state(cfg, desc_dim=desc_dim, device=dev)
     st, _ = run(st, chunks[0])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -177,7 +183,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    busy_us = _union_us([(e.time_range.start, e.time_range.end) for e in events])
+    busy_us = cs.union_us([(e.time_range.start, e.time_range.end) for e in events])
     if busy_us > 0:
         print(f"profiled chunk 2 (8 tracking frames): wall {1e3 * wall:.1f} ms, device "
               f"busy {busy_us / 1e3:.1f} ms ({100 * busy_us / (1e6 * wall):.1f}%), "
@@ -187,21 +193,25 @@ def main() -> int:
     else:
         print("profiled chunk 2: the profiler recorded no device time "
               "(device busy share not measured)", flush=True)
+
+    if args.path in ("superpoint", "attention"):
+        # the learned stages alone: one chunk's extraction, one frame's match
+        feats = run.extract(chunks[1])
+        for what, fn in (("extraction of chunk 2 (8 frames)", lambda: run.extract(chunks[1])),
+                         ("the matcher on frame 9 against the tracked keyframe",
+                          lambda: run.step.match(st.keyframe, feats[1]))):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+            dev_us = cs.union_us([(e.time_range.start, e.time_range.end) for e in kernels])
+            print(f"{what}: {dev_us / 1e3:.3f} ms of device time in {len(kernels)} device "
+                  f"events; on {card}", flush=True)
+            print(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=12),
+                  flush=True)
     return 0
-
-
-def _union_us(ranges) -> float:
-    """Total length of the union of [start, end) intervals (microseconds)."""
-    total = 0.0
-    end_max = None
-    for s, e in sorted(ranges):
-        if end_max is None or s > end_max:
-            total += e - s
-            end_max = e
-        elif e > end_max:
-            total += e - end_max
-            end_max = e
-    return total
 
 
 if __name__ == "__main__":

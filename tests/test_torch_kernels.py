@@ -139,12 +139,13 @@ def test_cpu_tensors_take_the_plain_versions():
     "n0,n1,d,invalid",
     [(1000, 777, 128, 0.1), (33, 5, 64, 0.0), (64, 300, 256, 0.5), (40, 50, 128, 1.0),
      (300, 1000, 8, 0.1), (300, 1000, 100, 0.1), (130, 700, 6, 0.0), (200, 900, 320, 0.1),
-     (4096, 4096 - 37, 128, 0.1)],
+     (4096, 4096 - 37, 128, 0.1), (2048, 2048, 256, 0.1)],
 )
 def test_match_top2_kernel_matches_plain(cuda_device, n0, n1, d, invalid):
     """Ragged tiles and splits, other depths (a streamed query tile above
-    d=128; zero-padded depths 8, 100 and, unaligned, 6), and an all-invalid
-    train set (every distance 1e30, index 0)."""
+    d=128; zero-padded depths 8, 100 and, unaligned, 6), an all-invalid
+    train set (every distance 1e30, index 0), and the SuperPoint path's
+    shape (2048 x 2048 x 256)."""
     rng = np.random.default_rng(n0 + n1)
     d0, d1, v1 = _descriptors(rng, n0, n1, d, invalid)
     a = [torch.as_tensor(x, device=cuda_device) for x in (d0, d1, v1)]

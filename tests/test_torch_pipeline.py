@@ -283,8 +283,8 @@ def test_engine_refuses_what_is_not_ported(ref):
     tc, K = ref["tc"], ref["scene"].K
     with pytest.raises(NotImplementedError, match="bundle-adjustment"):
         VOEngine(K, tc, enable_ba=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="learned-frontend"):
-        VOEngine(K, tc.replace(extractor_type="superpoint"), device="cpu")
+    with pytest.raises(ValueError, match="matcher_type"):
+        VOEngine(K, tc.replace(matcher_type="lightglue"), device="cpu")
     with pytest.raises(NotImplementedError, match="Rerun"):
         VOEngine(K, tc, viz=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="pose-graph"):

@@ -8,6 +8,12 @@ plain PyTorch on tensors: `NamedTuple`s of tensors for state, an explicit
 draws, and Python control flow on the host where the JAX engine used
 `lax.cond` / `lax.scan`.
 
+Both frontends are ported: SIFT-style extraction and the learned SuperPoint
+(`models/superpoint.py`, cell-softmax and dense heads), and both matchers:
+kNN + Lowe ratio and the attention matcher (`models/attention_matcher.py`).
+The learned models read the JAX package's bundled weight files
+(`models/weights.py`, `models/convert.py`).
+
 The three kernels of the SIFT -> kNN -> RANSAC path (top-2 matcher, patch
 gather, and the opt-in blur stack of the pyramid) are CUDA C++ for sm_90a
 (`csrc/`), built with nvcc at first use and bound through ctypes

@@ -8,7 +8,10 @@ from visualodometry_tpu_torch.core.state import (  # noqa: F401
     state_from_numpy,
     state_to_numpy,
 )
-from visualodometry_tpu_torch.core.step import make_step_fn  # noqa: F401
+from visualodometry_tpu_torch.core.step import (  # noqa: F401
+    make_attention_match_fn,
+    make_step_fn,
+)
 from visualodometry_tpu_torch.core.runner import (  # noqa: F401
     make_chunked_pipeline_fn,
 )

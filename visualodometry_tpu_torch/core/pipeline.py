@@ -4,9 +4,10 @@ Port of `VOEngine` from visualodometry_tpu/core/pipeline.py, without
 windowed BA: extraction and the VO step run on the device; this class owns
 the thin host state around them: the trajectory log (cleared on a reset,
 as the reference does), the keyframe pose log, and checkpointing of the
-state together with the step's RANSAC generator. `enable_ba`,
-`positions(smoothed=True)`, the SuperPoint extractor and a `viz` sink are
-not ported yet and raise.
+state together with the step's RANSAC generator. Both frontends (SIFT,
+SuperPoint with 256-D descriptors) and both matchers are ported;
+`enable_ba`, `positions(smoothed=True)` and a `viz` sink are not yet and
+raise.
 """
 
 from __future__ import annotations
@@ -57,9 +58,10 @@ class VOEngine:
 
             self._extract = lambda img: extract_sift(img, self.cfg, device=self.device)
         elif self.cfg.extractor_type == "superpoint":
-            raise NotImplementedError(
-                "VOEngine: the SuperPoint extractor waits for the learned-frontend slice"
-            )
+            from visualodometry_tpu_torch.frontend.superpoint import make_superpoint_extractor
+
+            self._extract = make_superpoint_extractor(self.cfg, device=self.device)
+            self.desc_dim = 256
         else:  # "synthetic" / precomputed features
             self._extract = None
         self._step = make_step_fn(self.cfg, self.K, device=self.device)

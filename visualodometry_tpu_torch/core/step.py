@@ -1,7 +1,8 @@
 """The per-frame VO step, with its branches taken on the host.
 
-Port of visualodometry_tpu/core/step.py (ratio-matcher branch). The JAX
-step is a nest of `lax.cond`s; here the handful of scalars that pick a
+Port of visualodometry_tpu/core/step.py, with both matchers: the kNN +
+Lowe ratio matcher and the attention matcher (models/attention_matcher.py).
+The JAX step is a nest of `lax.cond`s; here the handful of scalars that pick a
 branch are read back to the host and the branch is a Python `if`:
 
 - one read per frame, right after matching: has_keyframe, initialized,
@@ -46,10 +47,18 @@ from visualodometry_tpu_torch.estimation.essential import (
 from visualodometry_tpu_torch.estimation.pnp import pnp_sample_size, solve_pnp_ransac
 from visualodometry_tpu_torch.estimation.ransac import sample_valid_indices
 from visualodometry_tpu_torch.frontend.interface import Features
-from visualodometry_tpu_torch.frontend.matcher import match_descriptors
+from visualodometry_tpu_torch.frontend.matcher import MatchResult, match_descriptors
 from visualodometry_tpu_torch.geometry.se3 import make_T, se3_inverse
 from visualodometry_tpu_torch.geometry.so3 import rotation_angle
 from visualodometry_tpu_torch.geometry.triangulation import triangulate_points
+from visualodometry_tpu_torch.models import weights
+from visualodometry_tpu_torch.models.attention_matcher import (
+    AttentionMatcher,
+    adaptive_match,
+    assignment_from_scores,
+    normalize_kps,
+)
+from visualodometry_tpu_torch.models.convert import attention_state_dict_from_flax
 
 Sampler = Callable[[torch.Tensor, int, int], torch.Tensor]
 
@@ -63,20 +72,98 @@ def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(n > 0, med, 0.0)
 
 
+def _bundled_attention_weights(cfg: VOConfig):
+    """The bundled attention-matcher file the JAX step would load, or None:
+    `cfg.attention_weights`, then the v2 deep-supervision checkpoint, the r3
+    shared-head one, the synthetic one; only at depth 4 on 128-D
+    descriptors, the architecture they were trained for."""
+    d = 256 if cfg.extractor_type == "superpoint" else 128
+    names = ((cfg.attention_weights,) if cfg.attention_weights else ()) + (
+        "attention_matcher_sift_v2.pkl",
+        "attention_matcher_sift.pkl",
+        "attention_matcher_synthetic.pkl",
+    )
+    for name in names:
+        if weights.bundled(name).exists():
+            if cfg.attention_depth == 4 and d == 128:
+                return weights.load_flax_pickle(weights.bundled(name))
+            return None
+    return None
+
+
+def make_attention_match_fn(cfg: VOConfig, device, matcher_params=None):
+    """`match(kf, feats) -> MatchResult` through the attention matcher.
+
+    `matcher_params` is a Flax-layout tree (`models.weights.load_flax_pickle`);
+    None takes the bundled weights where they fit (`_bundled_attention_weights`)
+    and else the identity-residual init from a `torch.Generator` seeded with
+    cfg.seed (not Flax's numbers). A tree with per-layer confidence heads
+    (`confidence0`) runs `adaptive_match` with cfg's pruning and exit.
+    """
+    if matcher_params is None:
+        matcher_params = _bundled_attention_weights(cfg)
+    compute_dtype = torch.bfloat16 if cfg.attention_compute == "bf16" else torch.float32
+    if matcher_params is not None:
+        tree = matcher_params["params"]
+        adaptive = "confidence0" in tree
+        model = AttentionMatcher(
+            desc_dim=tree["in_proj"]["kernel"].shape[0], depth=cfg.attention_depth,
+            per_layer_heads=adaptive, compute_dtype=compute_dtype,
+        )
+        model.load_state_dict(attention_state_dict_from_flax(matcher_params))
+    else:
+        adaptive = False
+        model = AttentionMatcher(
+            desc_dim=256 if cfg.extractor_type == "superpoint" else 128,
+            depth=cfg.attention_depth, compute_dtype=compute_dtype,
+        )
+        model.init_identity_residual(torch.Generator().manual_seed(cfg.seed))
+    model = model.to(device).eval()
+
+    @torch.no_grad()
+    def match(kf: Keyframe, feats: Features) -> MatchResult:
+        args = (
+            normalize_kps(kf.kps, cfg.image_size), kf.desc, kf.kp_valid,
+            normalize_kps(feats.kps, cfg.image_size), feats.desc, feats.valid,
+        )
+        if adaptive:
+            return adaptive_match(
+                model, *args, prune_to=cfg.attention_prune_to,
+                exit_conf=cfg.attention_exit_conf,
+            )
+        sim, m0, m1 = model(*args)
+        return assignment_from_scores(sim, m0, m1, kf.kp_valid, feats.valid)
+
+    match.model = model
+    return match
+
+
 def make_step_fn(
-    cfg: VOConfig, K, device=None, sampler: Sampler | None = None
+    cfg: VOConfig, K, device=None, sampler: Sampler | None = None, matcher_params=None
 ) -> Callable[[VOState, Features], tuple[VOState, StepOutput]]:
     """Build the step closure for a config + intrinsics on `device`.
 
+    cfg.matcher_type picks the matcher: "ratio" (kNN + Lowe, kernel K1) or
+    "attention" (`make_attention_match_fn`, with `matcher_params`).
     `sampler(valid, H, k) -> (H, k)` draws the RANSAC minimal samples; by
     default `sample_valid_indices` from a `torch.Generator` on the device
     seeded with cfg.seed. Tests pass the JAX engine's draws instead. The
     returned step carries that generator as `step.generator` (None with a
-    custom sampler), so a checkpoint can hold its state.
+    custom sampler), so a checkpoint can hold its state, and its matcher
+    as `step.match`.
     """
-    if cfg.matcher_type != "ratio":
-        raise NotImplementedError("make_step_fn: only the ratio matcher is ported")
     dev = resolve_device(device)
+    if cfg.matcher_type == "attention":
+        match_fn = make_attention_match_fn(cfg, dev, matcher_params)
+    elif cfg.matcher_type == "ratio":
+
+        def match_fn(kf: Keyframe, feats: Features) -> MatchResult:
+            return match_descriptors(
+                kf.desc, kf.kp_valid, feats.desc, feats.valid,
+                ratio=cfg.lowe_ratio, mutual=cfg.mutual_check,
+            )
+    else:
+        raise ValueError(f"make_step_fn: unknown matcher_type {cfg.matcher_type!r}")
     K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
     gen = None
     if sampler is None:
@@ -170,10 +257,7 @@ def make_step_fn(
         n = feats.num_slots
         kf = state.keyframe
 
-        match = match_descriptors(
-            kf.desc, kf.kp_valid, feats.desc, feats.valid,
-            ratio=cfg.lowe_ratio, mutual=cfg.mutual_check,
-        )
+        match = match_fn(kf, feats)
         match_idx, match_valid = match.idx, match.valid
         num_matches = torch.sum(match_valid.to(torch.int32))
         uv_ref = kf.kps
@@ -317,4 +401,5 @@ def make_step_fn(
         )
 
     step.generator = gen
+    step.match = match_fn
     return step

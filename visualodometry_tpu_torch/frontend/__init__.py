@@ -1,4 +1,5 @@
-"""Feature contract, SIFT-style extractor and the kNN + Lowe matcher."""
+"""Feature contract, the SIFT-style and SuperPoint extractors and the kNN +
+Lowe matcher."""
 
 from visualodometry_tpu_torch.frontend.interface import (  # noqa: F401
     Features,
