@@ -10,10 +10,11 @@ mode outside interpret), the same frames (`make_marathon_fixture` at
 through the JAX package's `make_chunked_pipeline_fn` with its default
 band-matmul pyramid. Prints one JSON line: resets, resets outside the
 explained window [120, 183), keyframes, tracking at the end, the largest
-segment ATE. Tracking outcomes only: its times are CPU times and mean
+segment ATE. `--seed` sets cfg.seed, the RANSAC key (the config's 0 by
+default). Tracking outcomes only: its times are CPU times and mean
 nothing for the port.
 
-    JAX_PLATFORMS=cpu python scripts/kitti_gates_jax_cpu.py [--frames 192]
+    JAX_PLATFORMS=cpu python scripts/kitti_gates_jax_cpu.py [--frames 192] [--seed N]
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=192)
+    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
     import jax
@@ -45,7 +47,7 @@ def main() -> int:
     n, chunk, blank = args.frames, 8, (120, 123)
     cfg = get_config("kitti", extractor="sift").replace(
         sift_edge_threshold=10.0, global_scale=2.4, matcher_backend="jnp",
-        sift_first_octave=-1,
+        sift_first_octave=-1, seed=args.seed,
     )
     u8, gt, K, _ = make_marathon_fixture(num_frames=n, blanks=(blank,))
     run = make_chunked_pipeline_fn(cfg, K)
@@ -64,6 +66,7 @@ def main() -> int:
     segs = segment_ate(est, gt, resets)
     print(json.dumps({
         "backend": jax.default_backend(),
+        "seed": args.seed,
         "frames": n,
         "resets": int(resets.sum()),
         "reset_frames": np.flatnonzero(resets).tolist(),

@@ -205,6 +205,24 @@ def test_step_resolves_matcher_weights_as_jax():
         make_step_fn(base.replace(matcher_type="lightglue"), K, device="cpu")
 
 
+def test_named_matcher_weights_that_cannot_load_raise():
+    """A named `attention_weights` file that is missing, or that does not
+    fit the configured architecture, raises ValueError; the JAX step falls
+    through to v2 or the random init there, and the port departs from it
+    on purpose. Unnamed, an unfitting architecture still takes the random
+    init, as in JAX."""
+    K = np.eye(3, dtype=np.float32)
+    base = VOConfig(extractor_type="sift", matcher_type="attention", attention_depth=4)
+    with pytest.raises(ValueError, match="no file"):
+        make_step_fn(base.replace(attention_weights="attention_matcher_v9.pkl"), K, device="cpu")
+    named = base.replace(attention_weights="attention_matcher_sift_v3b.pkl")
+    assert make_step_fn(named, K, device="cpu").match.model.per_layer_heads
+    for cfg in (named.replace(attention_depth=2), named.replace(extractor_type="superpoint")):
+        with pytest.raises(ValueError, match="depth-4 matcher on 128-D"):
+            make_step_fn(cfg, K, device="cpu")
+    assert make_step_fn(base.replace(attention_depth=2), K, device="cpu").match.model.depth == 2
+
+
 # ---- the attention path end to end ---------------------------------------
 
 CHUNK = 4

@@ -164,3 +164,39 @@ def test_triangulate_points_gates():
     np.testing.assert_allclose(
         p_t.numpy()[both], np.asarray(p_j)[both], rtol=1e-3, atol=1e-3
     )
+
+
+def test_so3_log_matches_jax(rng):
+    """All three regimes: small angles (series), generic, near pi."""
+    w = rng.normal(0, 1, (60, 3)).astype(np.float32)
+    w[:10] *= 1e-5
+    w[10:20] *= (np.pi * 0.9999 / np.linalg.norm(w[10:20], axis=1))[:, None]
+    R = np.asarray(jso3.so3_exp(jnp.asarray(w)))
+    log_t = tso3.so3_log(_t(R))
+    _close(log_t, jso3.so3_log(jnp.asarray(R)), atol=2e-5)
+    # away from pi the map inverts so3_exp (near pi the axis is set by
+    # R + I, whose float32 round-off leaves ~4e-4)
+    far = np.r_[0:10, 20:60]
+    _close(tso3.so3_exp(log_t[far]), R[far], atol=2e-5)
+
+
+def test_ba_linalg_matches_jax(rng):
+    """What BA and the pose graph call: the adjugate 3x3 inverse, the
+    Cholesky solve (n <= 16) and the library solve above it, block-Jacobi
+    CG on a well-conditioned system, and the least-squares null vector."""
+    M = rng.normal(size=(30, 5, 3))
+    M = np.einsum("nij,nik->njk", M, M).astype(np.float32)
+    _close(tla.inv3_sym(_t(M)), jla.inv3_sym(jnp.asarray(M)), atol=1e-4, rtol=1e-4)
+    for n in (12, 60):
+        A = rng.normal(size=(n, n))
+        A = (A @ A.T + n * np.eye(n)).astype(np.float32)
+        b = rng.normal(size=n).astype(np.float32)
+        x_j = jla.solve_psd(jnp.asarray(A), jnp.asarray(b), damping=0.5)
+        _close(tla.solve_psd(_t(A), _t(b), damping=0.5), x_j)
+        _close(A @ np.asarray(x_j) + 0.5 * np.asarray(x_j), b, atol=1e-4)
+    _close(tla.solve_psd_pcg(_t(A), _t(b)), jla.solve_psd_pcg(jnp.asarray(A), jnp.asarray(b)))
+    X = rng.normal(size=(20, 6, 5)).astype(np.float32)
+    v_t = tla.nullvec(_t(X)).numpy()
+    v_j = np.asarray(jla.nullvec(jnp.asarray(X)))
+    sign = np.sign(np.sum(v_t * v_j, axis=1, keepdims=True))
+    _close(v_t * sign, v_j, atol=1e-5)

@@ -251,21 +251,30 @@ def test_extract_patches_tma_any_x0_alignment(cuda_device, shift):
 
 
 @pytest.mark.cuda
-def test_extract_patches_float_image_bitcast(cuda_device):
+@pytest.mark.parametrize("L, H, W, py, px, K", [
+    (2, 64, 128, 16, 16, 77),
+    # KLT mode's windows (ops/klt.py): the 24 x 16 template and the 40 x 32
+    # next-frame window on level 0's field at 1226 x 370, 4096 slots
+    (1, 376, 1280, 24, 16, 4096),
+    (1, 376, 1280, 40, 32, 4096),
+])
+def test_extract_patches_float_image_bitcast(cuda_device, L, H, W, py, px, K):
     """Float32 pixels bitcast to int32 words come back bit-equal: the copy
-    assumes nothing about what a word holds (NaN and -0.0 included)."""
+    assumes nothing about what a word holds (NaN and -0.0 included). The
+    KLT shapes take the TMA kernel, not the scalar loop."""
     rng = np.random.default_rng(5)
-    img = rng.standard_normal((2, 64, 128)).astype(np.float32)
-    img[0, 3, 5], img[1, 10, 20], img[1, 11, 21] = np.nan, -0.0, np.inf
+    img = rng.standard_normal((L, H, W)).astype(np.float32)
+    img[0, 3, 5], img[-1, 10, 20], img[-1, 11, 21] = np.nan, -0.0, np.inf
     img = torch.as_tensor(img, device=cuda_device)
-    K, py, px = 77, 16, 16
-    lvl = torch.as_tensor(rng.integers(0, 2, K).astype(np.int32), device=cuda_device)
-    y0 = torch.as_tensor(rng.integers(0, 64 - py + 1, K).astype(np.int32), device=cuda_device)
-    x0 = torch.as_tensor(rng.integers(0, 128 - px + 1, K).astype(np.int32), device=cuda_device)
+    lvl = torch.as_tensor(rng.integers(0, L, K).astype(np.int32), device=cuda_device)
+    y0 = torch.as_tensor(rng.integers(0, H - py + 1, K).astype(np.int32), device=cuda_device)
+    x0 = torch.as_tensor(rng.integers(0, W - px + 1, K).astype(np.int32), device=cuda_device)
     y0[0], x0[0], lvl[0] = 0, 0, 0
+    tma0 = pt.routes["tma"]
     out = pt.extract_patches(img.view(torch.int32), lvl, y0, x0, py, px)
     ref = pt._extract_patches_torch(img.view(torch.int32), lvl, y0, x0, py, px)
     assert torch.equal(out, ref)
+    assert pt.routes["tma"] == tma0 + 1
     patches = out.view(torch.float32)
     assert torch.isnan(patches[0, 3, 5]) and bool(torch.isfinite(patches[0, 0, 0]))
 

@@ -12,10 +12,13 @@ Both frontends are ported: SIFT-style extraction and the learned SuperPoint
 (`models/superpoint.py`, cell-softmax and dense heads), and both matchers:
 kNN + Lowe ratio and the attention matcher (`models/attention_matcher.py`).
 The learned models read the JAX package's bundled weight files
-(`models/weights.py`, `models/convert.py`).
+(`models/weights.py`, `models/convert.py`). KLT mode (`ops/klt.py`,
+`core/klt_step.py`) tracks candidate keypoints by pyramidal Lucas-Kanade;
+bundle adjustment (`ba/`) refines keyframe windows in the chunk runner and
+the engine, and smooths the keyframe chain as a pose graph.
 
-The three kernels of the SIFT -> kNN -> RANSAC path (top-2 matcher, patch
-gather, and the opt-in blur stack of the pyramid) are CUDA C++ for sm_90a
+The three kernels (top-2 matcher, patch gather, which KLT mode also
+runs, and the opt-in blur stack of the pyramid) are CUDA C++ for sm_90a
 (`csrc/`), built with nvcc at first use and bound through ctypes
 (`ops/_build.py`). Each sits beside a plain PyTorch version that the
 wrapper runs for CPU tensors.

@@ -1,11 +1,12 @@
 """Chunked sequence runner: extraction batched over a chunk, then the step.
 
-Port of `make_chunked_pipeline_fn` (without BA) from
+Port of `make_chunked_pipeline_fn` and `apply_pose_delta` from
 visualodometry_tpu/core/runner.py, with both frontends. SIFT: the pyramid
 stage runs once for the whole chunk (its band matmuls gain a batch axis),
 detection and description frame by frame. SuperPoint: the network runs
 once on the chunk's frames, keypoint selection frame by frame. The VO step
-then runs frame by frame.
+then runs frame by frame, and with `enable_ba=True` each chunk ends with
+the windowed BA of ba/inloop.py.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from visualodometry_tpu_torch.frontend.superpoint import make_batched_superpoint
 
 
 def make_chunked_pipeline_fn(
-    cfg: VOConfig, K, device=None, pyramid_impl: str = "auto", matcher_params=None
+    cfg: VOConfig, K, device=None, pyramid_impl: str = "auto", matcher_params=None,
+    enable_ba: bool = False,
 ) -> Callable:
     """Chunk runner over raw images (C, H, W), uint8 or float in [0, 1].
 
@@ -36,6 +38,12 @@ def make_chunked_pipeline_fn(
     "superpoint" picks the frontend; a SuperPoint state is made with
     `init_state(cfg, desc_dim=256)`. `matcher_params` goes to the step's
     attention matcher (`make_step_fn`).
+
+    With `enable_ba=True` the carry is `(state, KFWindow)` (start it with
+    `ba.inloop.init_window(cfg)`): each chunk ends with the windowed BA
+    (`ba.inloop.make_ba_chunk_fn`, one host read a chunk), and the chunk's
+    poses are retro-corrected by its pose delta (`apply_pose_delta`).
+    `run_chunk.ba` is that BA function.
     """
     dev = resolve_device(device)
     step = make_step_fn(cfg, K, device=dev, matcher_params=matcher_params)
@@ -46,13 +54,48 @@ def make_chunked_pipeline_fn(
     else:
         raise ValueError(f"make_chunked_pipeline_fn: no extractor {cfg.extractor_type!r}")
 
-    def run_chunk(state: VOState, imgs) -> tuple[VOState, StepOutput]:
+    def run_steps(state: VOState, imgs):
         feats = extract(torch.as_tensor(imgs).to(dev))
         outs = []
         for f in feats:
             state, out = step(state, f)
             outs.append(out)
-        return state, StepOutput(*(torch.stack(x) for x in zip(*outs)))
+        return state, feats, StepOutput(*(torch.stack(x) for x in zip(*outs)))
 
-    run_chunk.extract, run_chunk.step = extract, step
-    return run_chunk
+    if not enable_ba:
+
+        def run_chunk(state: VOState, imgs) -> tuple[VOState, StepOutput]:
+            state, _, outs = run_steps(state, imgs)
+            return state, outs
+
+        run_chunk.extract, run_chunk.step = extract, step
+        return run_chunk
+
+    from visualodometry_tpu_torch.ba.inloop import make_ba_chunk_fn
+
+    ba_chunk = make_ba_chunk_fn(cfg, K, device=dev)
+
+    def run_chunk_ba(carry, imgs):
+        state, win = carry
+        state, feats, outs = run_steps(state, imgs)
+        state, win, delta = ba_chunk(state, win, feats, outs)
+        return (state, win), apply_pose_delta(outs, delta)
+
+    run_chunk_ba.extract, run_chunk_ba.step, run_chunk_ba.ba = extract, step, ba_chunk
+    return run_chunk_ba
+
+
+def apply_pose_delta(outs: StepOutput, delta: torch.Tensor) -> StepOutput:
+    """Retro-correct a chunk's emitted poses by the BA pose delta, from the
+    chunk's last keyframe on (the frames after it were tracked in its frame
+    of reference), or the whole chunk when it pushed no keyframe (every
+    frame was then tracked against the window's newest keyframe, from an
+    earlier chunk). No host read."""
+    is_kf = outs.is_keyframe.to(torch.int32)
+    C = is_kf.shape[0]
+    idx = torch.arange(C, device=is_kf.device)
+    last_kf = torch.where(
+        is_kf.any(), C - 1 - torch.argmax(torch.flip(is_kf, dims=[0])), 0
+    )
+    mask = (idx >= last_kf)[:, None, None]
+    return outs._replace(T_wc=torch.where(mask, delta[None] @ outs.T_wc, outs.T_wc))

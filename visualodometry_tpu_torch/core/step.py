@@ -23,7 +23,7 @@ keyframe creation 252-288.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -73,21 +73,39 @@ def masked_median(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def _bundled_attention_weights(cfg: VOConfig):
-    """The bundled attention-matcher file the JAX step would load, or None:
-    `cfg.attention_weights`, then the v2 deep-supervision checkpoint, the r3
-    shared-head one, the synthetic one; only at depth 4 on 128-D
-    descriptors, the architecture they were trained for."""
+    """The bundled attention-matcher weights the step loads, or None.
+
+    Unnamed (`cfg.attention_weights` empty): the file the JAX step would
+    load, the v2 deep-supervision checkpoint, then the r3 shared-head one,
+    then the synthetic one, only at depth 4 on 128-D descriptors, the
+    architecture they were trained for; else None (the random init).
+
+    Named: that file, or ValueError if it is missing or the architecture
+    is not depth 4 on 128-D. Here the port departs from the JAX step on
+    purpose, which falls through to v2 for a missing named file and to the
+    random init for an unfitting one, so a user who chose a checkpoint can
+    run another without knowing.
+    """
     d = 256 if cfg.extractor_type == "superpoint" else 128
-    names = ((cfg.attention_weights,) if cfg.attention_weights else ()) + (
+    fits = cfg.attention_depth == 4 and d == 128
+    if cfg.attention_weights:
+        path = weights.bundled(cfg.attention_weights)
+        if not path.exists():
+            raise ValueError(f"attention_weights: no file {path}")
+        if not fits:
+            raise ValueError(
+                f"attention_weights {cfg.attention_weights!r} is a depth-4 matcher on "
+                f"128-D descriptors; the config asks for depth {cfg.attention_depth} "
+                f"on {d}-D"
+            )
+        return weights.load_flax_pickle(path)
+    for name in (
         "attention_matcher_sift_v2.pkl",
         "attention_matcher_sift.pkl",
         "attention_matcher_synthetic.pkl",
-    )
-    for name in names:
+    ):
         if weights.bundled(name).exists():
-            if cfg.attention_depth == 4 and d == 128:
-                return weights.load_flax_pickle(weights.bundled(name))
-            return None
+            return weights.load_flax_pickle(weights.bundled(name)) if fits else None
     return None
 
 
@@ -136,6 +154,49 @@ def make_attention_match_fn(cfg: VOConfig, device, matcher_params=None):
 
     match.model = model
     return match
+
+
+class SmoothedPose(NamedTuple):
+    state_fields: dict  # T_wc, last_pos, baseline_speed, is_turning
+    speed: torch.Tensor  # () the corrected speed, 0 when not moving
+
+
+def smoothed_pose(cfg: VOConfig, state, T_cw: torch.Tensor) -> SmoothedPose:
+    """The new pose from PnP's camera-from-world, with the reference's speed
+    smoothing (src/modules/vo.py:150-204): the step's translation is
+    rescaled toward the baseline speed, a turn is smoothed harder, and the
+    baseline follows straight moves. `state` has T_wc, last_pos,
+    baseline_speed and is_turning (a VOState or a KLTState)."""
+    T_wc_raw = se3_inverse(T_cw)
+    delta = T_wc_raw[:3, 3] - state.last_pos
+    raw_speed = torch.linalg.vector_norm(delta)
+    rot_magnitude = rotation_angle(T_cw[:3, :3] @ state.T_wc[:3, :3])
+    is_turning = rot_magnitude > cfg.turn_thresh
+    is_moving = raw_speed > cfg.move_thresh
+    smoothing = torch.where(is_turning, cfg.turn_smoothing, cfg.trans_smoothing)
+    target_speed = smoothing * state.baseline_speed + (1.0 - smoothing) * raw_speed
+    scale_factor = torch.clamp(
+        target_speed / torch.clamp(raw_speed, min=1e-12),
+        cfg.scale_clamp_min, cfg.scale_clamp_max,
+    )
+    new_baseline = torch.where(
+        is_moving & ~is_turning,
+        (1.0 - cfg.baseline_lr) * state.baseline_speed + cfg.baseline_lr * raw_speed,
+        state.baseline_speed,
+    )
+    corrected_delta = delta * scale_factor
+    T_wc_moving = T_wc_raw.clone()
+    T_wc_moving[:3, 3] = state.last_pos + corrected_delta
+    T_wc_new = torch.where(is_moving, T_wc_moving, T_wc_raw)
+    return SmoothedPose(
+        state_fields=dict(
+            T_wc=T_wc_new,
+            last_pos=T_wc_new[:3, 3],
+            baseline_speed=new_baseline,
+            is_turning=torch.where(is_moving, is_turning, state.is_turning),
+        ),
+        speed=torch.where(is_moving, torch.linalg.vector_norm(corrected_delta), 0.0),
+    )
 
 
 def make_step_fn(
@@ -342,33 +403,7 @@ def make_step_fn(
             lm_pts, uv_curr, pnp_valid, K, cfg, idx, T_init=se3_inverse(state.T_wc)
         )
         # the pnp_ok branch's device work is queued before the host read
-        T_cw = pnp.T_cw
-        T_wc_raw = se3_inverse(T_cw)
-        raw_pos = T_wc_raw[:3, 3]
-        delta = raw_pos - state.last_pos
-        raw_speed = torch.linalg.vector_norm(delta)
-        R_rel = T_cw[:3, :3] @ state.T_wc[:3, :3]
-        rot_magnitude = rotation_angle(R_rel)
-        is_turning = rot_magnitude > cfg.turn_thresh
-        is_moving = raw_speed > cfg.move_thresh
-        smoothing = torch.where(is_turning, cfg.turn_smoothing, cfg.trans_smoothing)
-        target_speed = smoothing * state.baseline_speed + (1.0 - smoothing) * raw_speed
-        scale_factor = torch.clamp(
-            target_speed / torch.clamp(raw_speed, min=1e-12),
-            cfg.scale_clamp_min, cfg.scale_clamp_max,
-        )
-        new_baseline = torch.where(
-            is_moving & ~is_turning,
-            (1.0 - cfg.baseline_lr) * state.baseline_speed + cfg.baseline_lr * raw_speed,
-            state.baseline_speed,
-        )
-        corrected_delta = delta * scale_factor
-        T_wc_moving = T_wc_raw.clone()
-        T_wc_moving[:3, 3] = state.last_pos + corrected_delta
-        T_wc_new = torch.where(is_moving, T_wc_moving, T_wc_raw)
-        speed_plot = torch.where(
-            is_moving, torch.linalg.vector_norm(corrected_delta), 0.0
-        )
+        moved = smoothed_pose(cfg, state, pnp.T_cw)
         # landmark-id propagation (vo.py:206-210)
         prop = pnp.inliers
         mi = matched["match_idx"].long()
@@ -385,19 +420,14 @@ def make_step_fn(
         if not pnp_ok:  # (reference: vo.py:240-242)
             state = _reset(state)
             return state, _output(state, n, did_reset=True, **matched)
-        state = state._replace(
-            T_wc=T_wc_new,
-            last_pos=T_wc_new[:3, 3],
-            baseline_speed=new_baseline,
-            is_turning=torch.where(is_moving, is_turning, state.is_turning),
-        )
+        state = state._replace(**moved.state_fields)
         if is_kf:
             state, curr_ids, _ = _create_keyframe(
                 state, feats, curr_ids, matched["match_idx"], matched["match_valid"]
             )
         return state, _output(
             state, n, curr_ids=curr_ids, num_tracked=num_tracked,
-            speed=speed_plot, is_keyframe=bool(is_kf), kf_reason=reason, **matched,
+            speed=moved.speed, is_keyframe=bool(is_kf), kf_reason=reason, **matched,
         )
 
     step.generator = gen

@@ -242,7 +242,23 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// Box buffers of the ring that fit beside the compact buffers.
+long long stages_that_fit(int py, int px) {
+  const long long win_stride = (4LL * py * px + 127) / 128 * 128;
+  const long long box_stride = (4LL * py * (px + 4) + 127) / 128 * 128;
+  return (SMEM_LIMIT / BLOCKS_PER_SM - 128 - 1024 - OUT_BUFS * win_stride) / box_stride;
+}
+
 }  // namespace
+
+// 1 if a launch with these shapes and pointers takes the TMA kernel, 0 if
+// it takes the scalar loop (the predicate patches_launch branches on).
+extern "C" int patches_tma_route(int W, int py, int px, const void* field,
+                                 const void* out) {
+  return (W % 4 == 0) && (px % 4 == 0) && px + 4 <= 256 && py <= 256 &&
+         ((uintptr_t)field % 16 == 0) && ((uintptr_t)out % 16 == 0) &&
+         stages_that_fit(py, px) >= 2;
+}
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success). Encoding
 // the tensor map is host arithmetic: no device synchronisation.
@@ -256,12 +272,8 @@ extern "C" int patches_launch(const int32_t* field, const int32_t* lvl,
   const long long box_bytes = 4LL * py * (px + 4);
   const long long win_stride = (win_bytes + 127) / 128 * 128;
   const long long box_stride = (box_bytes + 127) / 128 * 128;
-  const long long stages_fit =
-      (SMEM_LIMIT / BLOCKS_PER_SM - 128 - 1024 - OUT_BUFS * win_stride) / box_stride;
-  const bool tma = (W % 4 == 0) && (px % 4 == 0) && px + 4 <= 256 &&
-                   py <= 256 && ((uintptr_t)field % 16 == 0) &&
-                   ((uintptr_t)out % 16 == 0) && stages_fit >= 2;
-  if (!tma) {
+  const long long stages_fit = stages_that_fit(py, px);
+  if (!patches_tma_route(W, py, px, field, out)) {
     patch_scalar_kernel<<<K, SCALAR_THREADS, 0, st>>>(field, lvl, y0, x0, out,
                                                       H, W, py, px);
     return (int)cudaGetLastError();

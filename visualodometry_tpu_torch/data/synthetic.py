@@ -4,7 +4,9 @@ The port's own copy of the parts of visualodometry_tpu/data/synthetic.py
 that render the bench fixture: `make_scene` (a KITTI-like forward drive)
 and `render_textured_image` with the value-noise texture (a ray-cast
 corridor: ground plane and two side walls). Same code, same seeds, so the
-frames are the same as the JAX package's. Also its long fixtures
+frames are the same as the JAX package's. Also the dot renderer
+`render_image` (the KLT tests' frames), `render_features` (projected
+landmarks as `Features`) and `gt_correspondence`. Also its long fixtures
 (`make_marathon_fixture`, `make_long_corridor_fixture`: S-curves and
 blackout windows that force resets) and `segment_ate`, their metric.
 """
@@ -14,6 +16,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from visualodometry_tpu_torch.frontend.interface import Features, pad_features
 
 K_DEFAULT = np.array(
     [[718.856, 0.0, 607.1928], [0.0, 718.856, 185.2157], [0.0, 0.0, 1.0]],
@@ -116,6 +120,159 @@ def make_scene(
         base_desc=base_desc,
         poses_T_wc=poses.astype(np.float32),
     )
+
+
+def render_features(
+    scene: SyntheticScene,
+    frame: int,
+    num_slots: int,
+    rng: np.random.Generator,
+    pixel_noise: float = 0.3,
+    desc_noise: float = 0.02,
+    outlier_frac: float = 0.0,
+    max_depth: float = 80.0,
+    device=None,
+) -> Features:
+    """Project visible landmarks into the frame's camera as `Features`
+    on `device` (CUDA unless "cpu" is asked for)."""
+    T_wc = scene.poses_T_wc[frame]
+    R_cw = T_wc[:3, :3].T
+    t_cw = -R_cw @ T_wc[:3, 3]
+    p_cam = scene.landmarks @ R_cw.T + t_cw
+    z = p_cam[:, 2]
+    W, H = scene.image_size
+    uv = p_cam[:, :2] / np.maximum(z[:, None], 1e-6)
+    uv = uv * [scene.K[0, 0], scene.K[1, 1]] + [scene.K[0, 2], scene.K[1, 2]]
+    visible = (
+        (z > 1.0) & (z < max_depth) & (uv[:, 0] >= 0) & (uv[:, 0] < W)
+        & (uv[:, 1] >= 0) & (uv[:, 1] < H)
+    )
+    # deterministic priority (landmark index): a response-ranked detector
+    # whose selection is stable across frames
+    idx = np.flatnonzero(visible)[:num_slots]
+    kps = uv[idx] + rng.normal(0, pixel_noise, (len(idx), 2))
+    desc = scene.base_desc[idx] + rng.normal(
+        0, desc_noise, (len(idx), scene.base_desc.shape[1])
+    ).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=1, keepdims=True)
+    if outlier_frac > 0 and len(idx) > 0:
+        n_out = int(outlier_frac * len(idx))
+        out_sel = rng.choice(len(idx), n_out, replace=False)
+        kps[out_sel] = np.stack(
+            [rng.uniform(0, W, n_out), rng.uniform(0, H, n_out)], axis=1
+        )
+    return pad_features(kps.astype(np.float32), desc, num_slots, device=device)
+
+
+def gt_correspondence(
+    scene: SyntheticScene,
+    frame_a: int,
+    frame_b: int,
+    kps_a: np.ndarray,
+    depth_a: np.ndarray,
+):
+    """Map pixel keypoints in frame A to their true locations in frame B.
+
+    Unprojects each keypoint with frame A's rendered depth and projects
+    the world point into frame B. Returns (uv_b (N, 2), valid (N,)): valid
+    marks finite depth and in front of camera B.
+    """
+    W, H = scene.image_size
+    Kmat = scene.K
+    xi = np.clip(np.round(kps_a[:, 0]).astype(int), 0, W - 1)
+    yi = np.clip(np.round(kps_a[:, 1]).astype(int), 0, H - 1)
+    z = depth_a[yi, xi]
+    ok = np.isfinite(z)
+    z = np.where(ok, z, 0.0)  # NaN-free math for masked slots
+    d_cam = np.stack(
+        [
+            (kps_a[:, 0] - Kmat[0, 2]) / Kmat[0, 0],
+            (kps_a[:, 1] - Kmat[1, 2]) / Kmat[1, 1],
+            np.ones(len(kps_a)),
+        ],
+        axis=1,
+    )
+    T_a = scene.poses_T_wc[frame_a]
+    p_w = (d_cam * z[:, None]) @ T_a[:3, :3].T + T_a[:3, 3]
+    T_b = scene.poses_T_wc[frame_b]
+    R_cw = T_b[:3, :3].T
+    p_c = (p_w - T_b[:3, 3]) @ R_cw.T
+    ok &= p_c[:, 2] > 0.5
+    uv = p_c[:, :2] / np.maximum(p_c[:, 2:], 1e-9)
+    uv = uv * [Kmat[0, 0], Kmat[1, 1]] + [Kmat[0, 2], Kmat[1, 2]]
+    return uv.astype(np.float32), ok
+
+
+def render_image(
+    scene: SyntheticScene,
+    frame: int,
+    max_depth: float = 80.0,
+    dot_sigma: float = 2.2,
+    subdots: int = 1,
+) -> np.ndarray:
+    """Render the frame as a grayscale image of Gaussian dots, (H, W)
+    float32 in [0, 1].
+
+    Each visible landmark becomes an anti-aliased blob of a stable
+    per-landmark intensity. With `subdots > 1` each landmark is a rigid
+    constellation of that many blobs, which makes its local pattern unique.
+    """
+    W, H = scene.image_size
+    T_wc = scene.poses_T_wc[frame]
+    R_cw = T_wc[:3, :3].T
+    t_cw = -R_cw @ T_wc[:3, 3]
+    p_cam = scene.landmarks @ R_cw.T + t_cw
+    z = p_cam[:, 2]
+    uv = p_cam[:, :2] / np.maximum(z[:, None], 1e-6)
+    uv = uv * [scene.K[0, 0], scene.K[1, 1]] + [scene.K[0, 2], scene.K[1, 2]]
+    m = 3 * dot_sigma
+    vis = (
+        (z > 1.0) & (z < max_depth) & (uv[:, 0] >= -m) & (uv[:, 0] < W + m)
+        & (uv[:, 1] >= -m) & (uv[:, 1] < H + m)
+    )
+    idx = np.flatnonzero(vis)
+    img = np.zeros((H, W), np.float32)
+    L = len(scene.landmarks)
+    # stable per-landmark appearance (fixed seed: identical across frames)
+    rng_int = np.random.default_rng(12345)
+    intensities = rng_int.uniform(0.35, 1.0, (L, subdots)).astype(np.float32)
+    if subdots > 1:
+        offs = rng_int.uniform(
+            -2.5 * dot_sigma, 2.5 * dot_sigma, (L, subdots, 2)
+        ).astype(np.float32)
+        offs[:, 0] = 0.0  # the primary blob stays on the projection
+        pad = 2.5 * dot_sigma
+    else:
+        offs = np.zeros((L, 1, 2), np.float32)
+        pad = 0.0
+    r = int(np.ceil(m + pad))
+    ys = np.arange(-r, r + 1)
+    xs = np.arange(-r, r + 1)
+    gy, gx = np.meshgrid(ys, xs, indexing="ij")
+    inv2s2 = 1.0 / (2 * dot_sigma**2)
+    for i in idx:
+        cx, cy = uv[i]
+        x0, y0 = int(round(cx)), int(round(cy))
+        patch = np.zeros_like(gx, dtype=np.float32)
+        for s in range(subdots):
+            dx, dy = offs[i, s]
+            patch = np.maximum(
+                patch,
+                intensities[i, s]
+                * np.exp(-((gx + x0 - cx - dx) ** 2 + (gy + y0 - cy - dy) ** 2) * inv2s2),
+            )
+        ylo, yhi = y0 - r, y0 + r + 1
+        xlo, xhi = x0 - r, x0 + r + 1
+        py0, px0 = max(0, -ylo), max(0, -xlo)
+        ylo, xlo = max(0, ylo), max(0, xlo)
+        yhi, xhi = min(H, yhi), min(W, xhi)
+        if yhi <= ylo or xhi <= xlo:
+            continue
+        img[ylo:yhi, xlo:xhi] = np.maximum(
+            img[ylo:yhi, xlo:xhi],
+            patch[py0 : py0 + yhi - ylo, px0 : px0 + xhi - xlo],
+        )
+    return img
 
 
 def _value_noise(u: np.ndarray, v: np.ndarray, seed: int) -> np.ndarray:

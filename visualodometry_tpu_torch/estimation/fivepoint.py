@@ -1,7 +1,8 @@
 """Batched Nistér five-point minimal solver for the essential matrix.
 
 Port of visualodometry_tpu/estimation/fivepoint.py, step for step: null
-basis by subspace inverse iteration, the 10 cubic constraints expanded by
+basis by subspace inverse iteration (here in float64, see `null_basis`),
+the 10 cubic constraints expanded by
 a small polynomial-algebra helper, Gauss-Jordan with partial pivoting, the
 degree-10 determinant polynomial, fixed-iteration Durand-Kerner root
 finding (a Python loop over batched tensors), back-substitution, a damped
@@ -89,10 +90,28 @@ def rank2_diag(like: torch.Tensor) -> torch.Tensor:
 
 def null_basis(M: torch.Tensor, k: int, iters: int = 8) -> torch.Tensor:
     """Orthonormal basis (..., n, k) of the k-dim smallest-eigenvalue
-    subspace of symmetric PSD (..., n, n), via subspace inverse iteration."""
+    subspace of symmetric PSD (..., n, n), via subspace inverse iteration.
+
+    The iteration runs in float64 and the basis is returned in M's dtype.
+    In float32 the shifted system (condition ~1e6 by construction) leaves
+    the basis good to ~1e-3 only: different operation orders gave bases
+    whose projectors differ by that much. `torch.linalg.eigh` would do as
+    well, but on CUDA it reads its status back on the host; this loop
+    never waits for the device.
+
+    The shift is set by M's precision. A float32 M keeps the JAX
+    function's 1e-6 of the mean diagonal: its rounding leaves eigenvalues
+    down to -1e-8 of the trace, which a smaller shift would not cover. A
+    float64 M (`five_point_candidates` forms it so) takes 1e-10, so a
+    near-degenerate sample whose fifth eigenvalue is ~1e-7 of the trace
+    still converges in `iters` steps.
+    """
+    rel = 1e-6 if M.dtype == torch.float32 else 1e-10
+    dtype = M.dtype
+    M = M.to(torch.float64)
     n = M.shape[-1]
     tr = torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
-    eps = (torch.abs(tr) / n) * 1e-6 + 1e-12
+    eps = (torch.abs(tr) / n) * rel + 1e-30
     Ms = M + eps[..., None, None] * torch.eye(n, dtype=M.dtype, device=M.device)
     L = cholesky_small(Ms)
 
@@ -117,7 +136,7 @@ def null_basis(M: torch.Tensor, k: int, iters: int = 8) -> torch.Tensor:
     for _ in range(iters):
         cols = [cho_solve_small(L, V[..., :, c]) for c in range(k)]
         V = orthonormalize(torch.stack(cols, dim=-1))
-    return V
+    return V.to(dtype)
 
 
 def _constraint_rows(Ebasis: torch.Tensor) -> torch.Tensor:
@@ -370,8 +389,10 @@ def five_point_candidates(
     one = torch.ones_like(a)
     rows = torch.stack([c * a, c * b, c, d * a, d * b, d, a, b, one], dim=-1)
 
+    # the normal matrix is formed in float64 too (see null_basis)
+    rows = rows.to(torch.float64)
     AtA = torch.einsum("...ni,...nj->...ij", rows, rows)
-    Ebasis = null_basis(AtA, 4)  # (H, 9, 4)
+    Ebasis = null_basis(AtA, 4).to(x0.dtype)  # (H, 9, 4)
 
     A = _constraint_rows(Ebasis)  # (H, 10, 20)
     B = _gauss_jordan_tail(A)  # (H, 10, 10)

@@ -1,12 +1,14 @@
 """Small-matrix linear algebra as closed-form / unrolled tensor arithmetic.
 
-Port of the parts of visualodometry_tpu/geometry/linalg.py that the
-SIFT -> kNN -> RANSAC path calls: `eigh3` (Cardano), `svd3`,
+Port of visualodometry_tpu/geometry/linalg.py: `eigh3` (Cardano), `svd3`,
 `smallest_eigvec` (shifted inverse iteration through an unrolled
-Cholesky), `cholesky_small` / `cho_solve_small` and `solve_psd_small`.
-The closed forms are kept as written because they set the numerics of the
-essential / PnP estimators; `torch.linalg` would give different (LAPACK or
-cuSOLVER) numerics. Everything is batched over leading dims.
+Cholesky), `nullvec`, `inv3_sym` (adjugate), `cholesky_small` /
+`cho_solve_small`, `solve_psd_small`, and for bundle adjustment
+`solve_psd` and `solve_psd_pcg`. The closed forms are kept as written
+because they set the numerics of the estimators; `torch.linalg` would give
+different (LAPACK or cuSOLVER) numerics. `solve_psd` above n = 16 is the
+one library solve, as in the JAX function. Everything is batched over
+leading dims.
 """
 
 from __future__ import annotations
@@ -198,6 +200,31 @@ def smallest_eigvec(M: torch.Tensor, iters: int = 24) -> torch.Tensor:
     return v
 
 
+def nullvec(A: torch.Tensor) -> torch.Tensor:
+    """Least-squares null vector of (..., m, n): argmin_{|x|=1} |A x|."""
+    return smallest_eigvec(A.transpose(-1, -2) @ A)
+
+
+def inv3_sym(M: torch.Tensor) -> torch.Tensor:
+    """Closed-form (adjugate) inverse of symmetric (..., 3, 3) matrices.
+
+    For PD matrices (BA's V = B^T B + lambda I); the determinant is kept
+    away from zero so semidefinite input stays finite.
+    """
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 1], M[..., 1, 2], M[..., 2, 2]
+    A = d * f - e * e
+    B = c * e - b * f
+    C = b * e - c * d
+    D = a * f - c * c
+    E = b * c - a * e
+    F = a * d - b * b
+    det = a * A + b * B + c * C
+    inv_det = 1.0 / torch.where(torch.abs(det) > _TINY, det, _TINY)
+    rows = [torch.stack(r, dim=-1) for r in ((A, B, C), (B, D, E), (C, E, F))]
+    return torch.stack(rows, dim=-2) * inv_det[..., None, None]
+
+
 def svd3(E: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Closed-form SVD of (..., 3, 3) via eigh3 of E^T E.
 
@@ -237,3 +264,58 @@ def solve_psd_small(
         A = A + damping * torch.eye(n, dtype=A.dtype, device=A.device)
     L = cholesky_small(A)
     return cho_solve_small(L, b)
+
+
+def solve_psd_pcg(
+    A: torch.Tensor, b: torch.Tensor, iters: int = 48, block: int = 6
+) -> torch.Tensor:
+    """Block-Jacobi-preconditioned CG for one SPD (n, n) system, n % block == 0.
+
+    Not the default for the Schur pose systems (the JAX package measured
+    float32 CG erratic on monocular BA's reduced systems, cond >~ 1e6);
+    kept for well-conditioned systems whose iteration count a caller can
+    bound. A fixed number of iterations, no host read.
+    """
+    n = A.shape[-1]
+    nb = n // block
+    idx = torch.arange(nb, device=A.device)
+    diag = A.reshape(nb, block, nb, block)[idx, :, idx, :]  # (nb, block, block)
+    Ld = cholesky_small(diag)
+
+    def precond(r):
+        return cho_solve_small(Ld, r.reshape(nb, block)).reshape(n)
+
+    def safe(d):
+        return torch.where(torch.abs(d) > _TINY, d, _TINY)
+
+    x = torch.zeros_like(b)
+    r = b
+    z = precond(r)
+    p = z
+    rz = torch.dot(r, z)
+    for _ in range(iters):
+        Ap = A @ p
+        alpha = rz / safe(torch.dot(p, Ap))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = torch.dot(r, z)
+        p = z + rz_new / safe(rz) * p
+        rz = rz_new
+    return x
+
+
+def solve_psd(A: torch.Tensor, b: torch.Tensor, damping: float = 0.0) -> torch.Tensor:
+    """Solve (A + damping*I) x = b for symmetric PSD A (..., n, n).
+
+    n <= 16 through the unrolled Cholesky; larger systems (BA's dense
+    Schur pose systems) through `torch.linalg.solve_ex`, as the JAX
+    function calls the library solve there. `solve_ex`, not `solve`:
+    `solve` checks its status on the host, which on CUDA waits for the
+    device.
+    """
+    n = A.shape[-1]
+    if n <= 16:
+        return solve_psd_small(A, b, damping)
+    A = A + damping * torch.eye(n, dtype=A.dtype, device=A.device)
+    return torch.linalg.solve_ex(A, b[..., None])[0][..., 0]

@@ -1,12 +1,14 @@
 """Closed-form SO(3) maps (batched over leading dims).
 
-Port of the parts of visualodometry_tpu/geometry/so3.py that the main
-path uses (`so3_hat`, `so3_exp`, `rotation_angle`): the same
-Taylor-guarded Rodrigues formula, so the estimators see the same
+Port of visualodometry_tpu/geometry/so3.py (`so3_hat`, `so3_exp`,
+`so3_log`, `rotation_angle`): the same Taylor-guarded Rodrigues formula
+and its inverse, so the estimators and the pose graph see the same
 numerics.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -40,6 +42,39 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     W2 = W @ W
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
     return eye + a[..., None, None] * W + b[..., None, None] * W2
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> axis-angle (..., 3).
+
+    Three regimes: small angle (series), generic, and near pi (the axis
+    from the largest column of R + I, its sign from the antisymmetric
+    part). OpenCV's Rodrigues convention: the vector's norm is the angle.
+    """
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    theta = torch.arccos(torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0))
+    # antisymmetric part: (R - R^T) / 2 has entries sin(theta) * axis
+    v = torch.stack(
+        [R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0], R[..., 1, 0] - R[..., 0, 1]],
+        dim=-1,
+    )
+    sin_theta = torch.sin(theta)
+    factor = torch.where(
+        theta < 1e-4,
+        0.5 + theta * theta / 12.0,
+        theta / torch.where(torch.abs(sin_theta) < _EPS, _EPS, 2.0 * sin_theta),
+    )
+    w_generic = factor[..., None] * v
+
+    S = R + torch.eye(3, dtype=R.dtype, device=R.device)
+    diag = torch.diagonal(S, dim1=-2, dim2=-1)
+    k = torch.argmax(diag, dim=-1)
+    col = torch.take_along_dim(S, k[..., None, None], dim=-1)[..., 0]
+    col_norm = torch.linalg.vector_norm(col, dim=-1, keepdim=True)
+    axis = col / torch.where(col_norm < _EPS, _EPS, col_norm)
+    sign = torch.where(torch.sum(axis * v, dim=-1, keepdim=True) < 0.0, -1.0, 1.0)
+    w_pi = theta[..., None] * axis * sign
+    return torch.where((theta > math.pi - 1e-3)[..., None], w_pi, w_generic)
 
 
 def rotation_angle(R: torch.Tensor) -> torch.Tensor:

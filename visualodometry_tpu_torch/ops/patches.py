@@ -17,8 +17,10 @@ import torch
 
 from visualodometry_tpu_torch.ops import _build
 
-# kernel launches since the last reset (a plain count; callers zero it)
+# kernel launches since the last reset (a plain count; callers zero it),
+# and how many of them took the TMA kernel and the scalar loop
 launches = 0
+routes = {"tma": 0, "scalar": 0}
 
 
 def _extract_patches_torch(field, lvl, y0, x0, patch_y: int, patch_x: int):
@@ -92,4 +94,8 @@ def extract_patches(
     )
     _build.check_launch("extract_patches", err)
     launches += 1
+    route = lib.patches_tma_route
+    route.restype = ctypes.c_int
+    route.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    routes["tma" if route(W, patch_y, patch_x, field.data_ptr(), out.data_ptr()) else "scalar"] += 1
     return out
