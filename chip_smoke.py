@@ -85,7 +85,23 @@ Phases (any failed check raises, so the script exits non-zero):
      keyframes within 3 of the JAX package's CPU count, BA ran, sim3 ATE
      <= BA_ATE_LIMIT, the main path's launches;
  19. `VOEngine(enable_ba=True)` on 16 frames with a checkpoint round trip,
-     and `positions(smoothed=True)`.
+     and `positions(smoothed=True)`;
+ 20. K1 with a lane axis (after phase 2): B = 4 lanes at 4096 x 4096 x 128
+     and 3 ragged lanes at 4001 x 4059, each lane of the one launch through
+     `_k1_parity` and bit-equal to its own 2-D launch, B = 1 bit-equal to the
+     2-D launch; one 4-lane launch timed against four 2-D launches and
+     batched `cdist` + `topk` (the `lanes` field of K1's kernel entry);
+ 21. the distributed Schur BA (after phase 17) on the same 20 x 5120 problem:
+     a one-rank mesh under an NCCL process group, then two spawned processes
+     sharing the card over gloo with CUDA tensors (map = 2), each against
+     `ba_solve` at phase 17's limits and exactly against the same landmark
+     blocks summed in one process, with the all-reduce's time;
+ 22. the multi-sequence run as bench.py:bench_multiseq builds it, at B = 1,
+     2, 4 lanes of the 32 frames (+5 b brightness): counts zeroed before the
+     pass and read after (K1 x 32 carrying B lanes each, K2 x 96 B, K3 x 0),
+     every lane at the main path's limits, lane 0 at B = 4 against the main
+     path, at most 2 host syncs a tracking frame, and a second pass's
+     aggregate frames/s and device busy share (no limit).
 K1 is also held against its plain version at the SuperPoint path's shape,
 2048 x 2048 x 256, and timed there beside `cdist` + `topk`, on a log line of
 its own (phase 2). The KITTI-gates phases hold the largest segment ATE at
@@ -246,6 +262,25 @@ ENGINE_BA_RESUME_FRACTION = 0.10
 BA_SOLVE_T_TOL = 2e-4
 BA_SOLVE_X_TOL = 2e-3
 
+# the multi-sequence run (bench.py:bench_multiseq): lane counts, and K1's
+# lane-axis phase at the main path's shape
+MULTISEQ_LANES = (1, 2, 4)
+K1_LANE_SHAPE = (4096, 4096, 128)
+# a spawned rank of the distributed BA must report within this many seconds
+DIST_TIMEOUT_S = 300
+# ba_solve_distributed against ba_solve on the 20 x 5120 problem is held
+# at phase_ba_solve's limits on either mesh, and exactly against the same
+# landmark blocks summed in one process (the distribution's own
+# arithmetic). The first is conditioning, not distribution: 8 Gauss-Newton
+# iterations of this problem do not settle to float32's precision:
+# another order of the same float32 sums moves the solve in pose by a
+# median of 7.8e-5 (one block), 1.5e-4 (2) and 7.2e-4 (4), and by up to
+# 3.5e-2 (landmarks 0.10 m), over 25 landmark orders on the CPU
+# (scripts/ba_order_scatter_cpu.py). The two-rank order on an H100 80GB
+# HBM3 lands within 2e-6 of its ba_solve (this script's reading, PERF.md),
+# and a card's arithmetic repeats. So if only that check fails on another card or library, the
+# exact one says whether the distribution is at fault.
+
 
 def log(*args):
     print(*args, flush=True)
@@ -344,7 +379,8 @@ def busy_ms(torch, fn) -> float:
     return union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
 
 
-def _k1_parity(torch, m, d0, d1, valid1, what: str, abs_limit: float | None = None) -> float:
+def _k1_parity(torch, m, d0, d1, valid1, what: str, abs_limit: float | None = None,
+               kernel_out=None) -> float:
     """Hold K1 against its plain version on these inputs; returns the largest
     absolute error. Relative 1e-5 on best and second: both sum 128 products in
     float32 in different orders (the plain version itself sits 4e-6 from a
@@ -353,8 +389,9 @@ def _k1_parity(torch, m, d0, d1, valid1, what: str, abs_limit: float | None = No
     are held to that absolute error instead: where best distances are near
     zero, |a|^2 + |b|^2 - 2 a.b cancels and no float32 evaluation of it is
     good to 1e-5 of the difference (the plain version's own relative error
-    against float64 is printed beside the kernel's)."""
-    b_k, s_k, i_k = m.match_top2(d0, d1, valid1)
+    against float64 is printed beside the kernel's). `kernel_out` is a lane
+    of a launch with a lane axis, held in place of a 2-D launch."""
+    b_k, s_k, i_k = m.match_top2(d0, d1, valid1) if kernel_out is None else kernel_out
     b_p, s_p, i_p = m._top2_torch(d0, d1, valid1)
     b_r, s_r, _ = m._top2_torch(d0.double(), d1.double(), valid1)
     torch.cuda.synchronize()
@@ -717,7 +754,7 @@ def phase_main_path(torch, dev, card):
     dt = time.perf_counter() - t0
     log(f"main path second pass: {N_FRAMES / dt:.3f} frames/s ({dt:.3f} s for "
         f"{N_FRAMES} frames) on {card}")
-    return launches, scene, u8
+    return launches, scene, u8, dict(resets=resets, keyframes=keyframes)
 
 
 def gates_config():
@@ -1293,6 +1330,320 @@ def phase_superpoint_dtype(torch, dev, card, scene, u8):
         + f"; on {card}")
 
 
+def _unit_sets(torch, g, dev, B, n0, n1, d):
+    """B lanes of the phase_match inputs: unit descriptors, half the train
+    rows planted near queries, ~10% invalid."""
+    d0 = torch.randn(B, n0, d, generator=g, device=dev)
+    d1 = torch.randn(B, n1, d, generator=g, device=dev)
+    d0 /= d0.norm(dim=-1, keepdim=True)
+    k = min(n0, n1) // 2
+    d1[:, :k] = d0[:, :k] + 0.05 * torch.randn(B, k, d, generator=g, device=dev)
+    d1 /= d1.norm(dim=-1, keepdim=True)
+    return d0, d1, torch.rand(B, n1, generator=g, device=dev) >= 0.1
+
+
+def phase_match_lanes(torch, dev, card) -> dict:
+    """K1 with a lane axis: B = 4 at 4096 x 4096 x 128 and ragged lanes,
+    each lane of one launch through `_k1_parity` and bit-equal to its own
+    2-D launch; B = 1 bit-equal to the 2-D launch; one B-lane launch timed
+    against B 2-D launches and batched `cdist` + `topk`."""
+    from visualodometry_tpu_torch.ops import match_top2 as m
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    B, (n0, n1, d) = MULTISEQ_LANES[-1], K1_LANE_SHAPE
+    err = 0.0
+    for lanes, a, b, what in ((B, n0, n1, "lanes"), (3, 4001, 4059, "ragged lanes")):
+        d0, d1, v1 = _unit_sets(torch, g, dev, lanes, a, b, d)
+        out = m.match_top2(d0, d1, v1)
+        equal = True
+        for lane in range(lanes):
+            err = max(err, _k1_parity(torch, m, d0[lane], d1[lane], v1[lane],
+                                      f"{what}: lane {lane} of {lanes} at {a} x {b} x {d}",
+                                      kernel_out=tuple(x[lane] for x in out)))
+            one = m.match_top2(d0[lane], d1[lane], v1[lane])
+            equal &= all(bool(torch.equal(x[lane], y)) for x, y in zip(out, one))
+        log(f"K1 {what}: {lanes} lanes in one launch bit-equal to their 2-D launches: {equal}")
+        check(equal, f"K1 {what}: a lane differs from its own 2-D launch")
+    d0, d1, v1 = _unit_sets(torch, g, dev, B, n0, n1, d)
+    two_d = m.match_top2(d0[0], d1[0], v1[0])
+    one_lane = m.match_top2(d0[:1], d1[:1], v1[:1])
+    same = all(bool(torch.equal(x, y[0])) for x, y in zip(two_d, one_lane))
+    log(f"K1 with one lane bit-equal to the 2-D launch: {same}")
+    check(same, "K1: B = 1 differs from the 2-D launch")
+
+    def library():
+        dist = torch.cdist(d0, d1)
+        return torch.topk((dist * dist).masked_fill(~v1[:, None, :], 1e30), 2, dim=2,
+                          largest=False)
+
+    def per_lane():
+        for lane in range(B):
+            m.match_top2(d0[lane], d1[lane], v1[lane])
+
+    t_k = time_ms(torch, lambda: m.match_top2(d0, d1, v1))
+    t_2d = time_ms(torch, per_lane)
+    t_p = time_ms(torch, lambda: m._top2_torch(d0, d1, v1), reps=5, warmup=1)
+    t_l = time_ms(torch, library)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = m._splits(n0, n1, sms, B)
+    t_ops = B * 3.0 * 2.0 * n0 * n1 * d / PEAK_TF32_FLOPS
+    t_bytes = B * ((n0 + n1) * d * 4 + n1 + n0 * 12 + 2 * splits * n0 * 12) / PEAK_BYTES
+    b_ms = max(t_ops, t_bytes) * 1e3
+    log(f"K1 with {B} lanes at {n0} x {n1} x {d}: one launch {t_k:.4f} ms, {B} 2-D launches "
+        f"{t_2d:.4f} ms, plain {t_p:.4f} ms, library {t_l:.4f} ms (batched cdist + topk), bound "
+        f"{b_ms:.4f} ms ({'operations' if t_ops > t_bytes else 'bytes'}), {b_ms / t_k:.1%} of the "
+        f"bound, {splits} split(s) a lane, max abs err {err:.3e}, on {card}")
+    return dict(B=B, shape=[n0, n1, d], ms=t_k, two_d_ms=t_2d, plain_ms=t_p, library_ms=t_l,
+                bound_ms=b_ms, splits=splits, max_abs_err=err)
+
+
+def phase_multiseq(torch, dev, card, scene, u8, main):
+    """The multi-sequence run as bench.py:bench_multiseq builds it: lane b is
+    the 32-frame fixture with +5 b brightness; a chunk's C x B frames are
+    extracted together, then the multi-sequence step runs frame by frame.
+    At B = 1, 2, 4: counts zeroed before the pass and read after, the main
+    path's limits on every lane, host syncs per tracking frame, and a second
+    pass's aggregate frames/s and a tracking window's device busy share."""
+    from visualodometry_tpu_torch import config_from_dict
+    from visualodometry_tpu_torch.frontend.sift import make_batched_extract_fn
+    from visualodometry_tpu_torch.parallel import init_batched_state, make_multiseq_step_fn
+    from visualodometry_tpu_torch.core.state import stack_states
+
+    cfg = config_from_dict(BENCH_CFG)
+    extract = make_batched_extract_fn(cfg, device=dev)
+    summary = {}
+    for B in MULTISEQ_LANES:
+        seqs = np.stack([np.clip(u8.astype(np.int16) + 5 * b, 0, 255).astype(np.uint8)
+                         for b in range(B)], axis=1)  # (F, B, H, W)
+        chunks = [torch.as_tensor(seqs[i : i + CHUNK]).to(dev) for i in range(0, N_FRAMES, CHUNK)]
+
+        def frames():
+            for c in chunks:
+                feats = extract(c.reshape((-1,) + c.shape[2:]))
+                for f in range(c.shape[0]):
+                    yield stack_states(feats[f * B : (f + 1) * B])
+
+        def run_pass(count=False):
+            step = make_multiseq_step_fn(cfg, scene.K, device=dev)
+            state = init_batched_state(cfg, 128, B, device=dev)
+            outs, syncs = [], []
+            for feats in frames():
+                if count:
+                    (state, out), n = count_syncs(torch, lambda: step(state, feats))
+                    syncs.append(n)
+                else:
+                    state, out = step(state, feats)
+                outs.append(out)
+            torch.cuda.synchronize()
+            return step, state, outs, syncs
+
+        zero_launches()
+        _, _, outs, syncs = run_pass(count=True)
+        launches = read_launches()
+        T = torch.stack([o.T_wc for o in outs]).cpu().numpy()  # (F, B, 4, 4)
+        resets = torch.stack([o.did_reset for o in outs]).sum(0).tolist()
+        keyframes = torch.stack([o.is_keyframe for o in outs]).sum(0).tolist()
+        inited = torch.stack([o.initialized for o in outs]).cpu().numpy()
+        ates = [_fixture_ate(T[:, b, :3, 3], scene.gt_positions) for b in range(B)]
+        # a tracking frame: every lane was tracking before it
+        tracking = [f for f in range(1, N_FRAMES) if inited[f - 1].all()]
+        sync_max = max(syncs[f] for f in tracking)
+        want = {"match_top2": N_FRAMES, "extract_patches": 3 * N_FRAMES * B, "blur_stack": 0}
+        log(f"multi-sequence, B={B}: resets {resets}, keyframes {keyframes}, sim3 ATE per lane "
+            f"{[round(a, 6) for a in ates]} m, launches {launches} (K1 {B} lanes a launch), host "
+            f"syncs a tracking frame: mean {np.mean([syncs[f] for f in tracking]):.2f}, max "
+            f"{sync_max} ({len(tracking)} tracking frames)")
+        check(bool(np.isfinite(T).all()), f"multi-sequence B={B}: non-finite poses")
+        check(all(r == 0 for r in resets), f"multi-sequence B={B}: resets {resets}")
+        check(all(k >= 28 for k in keyframes), f"multi-sequence B={B}: keyframes {keyframes}")
+        check(all(a <= 0.05 for a in ates), f"multi-sequence B={B}: sim3 ATE {ates}")
+        check(launches == want, f"multi-sequence B={B} launched {launches}, not {want}")
+        check(sync_max <= 2, f"multi-sequence B={B}: {sync_max} host syncs on a tracking frame")
+        if B == MULTISEQ_LANES[-1]:
+            log(f"multi-sequence lane 0 at B={B} against the single-sequence main path: resets "
+                f"{resets[0]} / {main['resets']}, keyframes {keyframes[0]} / {main['keyframes']}")
+            check(resets[0] == main["resets"], "lane 0 resets differ from the main path's")
+            check(abs(keyframes[0] - main["keyframes"]) <= 3,
+                  "lane 0 keyframes differ from the main path's by more than 3")
+
+        t0 = time.perf_counter()
+        run_pass()
+        dt = time.perf_counter() - t0
+        # two tracking frames of the second chunk under the profiler
+        step = make_multiseq_step_fn(cfg, scene.K, device=dev)
+        state = init_batched_state(cfg, 128, B, device=dev)
+        feats = list(frames())
+        for f in feats[:CHUNK]:
+            state, _ = step(state, f)
+
+        def window():
+            nonlocal state
+            for f in feats[CHUNK : CHUNK + 2]:
+                state, _ = step(state, f)
+
+        busy, wall = busy_share(torch, window)
+        del feats
+        summary[B] = dict(fps=B * N_FRAMES / dt, busy=busy / wall)
+        log(f"multi-sequence, B={B}: second pass {B * N_FRAMES / dt:.3f} frames/s aggregate "
+            f"({dt:.3f} s for {B} x {N_FRAMES} frames); two tracking frames under the profiler: "
+            f"device busy {busy:.1f} of {wall:.1f} ms wall ({busy / wall:.1%}); on {card}")
+    return summary
+
+
+def _allreduce_ms(torch, dev, group, numel: int, reps: int = 20) -> float:
+    """Host-clock ms of one all-reduce of `numel` float32 on `dev`, the size
+    of the distributed BA's per-iteration system, averaged over `reps`."""
+    import torch.distributed as dist
+
+    buf = torch.ones(numel, device=dev)
+    dist.all_reduce(buf, group=group)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        dist.all_reduce(buf, group=group)
+    _sync(torch, dev)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _sync(torch, dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def ba_split_reference(prob, blocks: int, iters: int, damping: float):
+    """`ba_solve_distributed`'s arithmetic in one process: the reduced
+    systems of `blocks` landmark blocks summed in rank order, the solve
+    replicated. Returns (T_cw, X)."""
+    import torch
+
+    from visualodometry_tpu_torch.ba.solver import (
+        apply_updates,
+        landmark_contributions,
+        reduced_solve,
+    )
+
+    n = prob.X.shape[0] // blocks
+    rows = [slice(i * n, (i + 1) * n) for i in range(blocks)]
+    T, X = prob.T_cw, [prob.X[r] for r in rows]
+    for _ in range(iters):
+        parts = [landmark_contributions(T, X[i], prob.uv[r], prob.mask[r], prob.K, damping)
+                 for i, r in enumerate(rows)]
+        S, rhs = parts[0].S, parts[0].rhs
+        for p in parts[1:]:
+            S, rhs = S + p.S, rhs + p.rhs
+        delta = reduced_solve(S, rhs, damping, 2)
+        new = [apply_updates(T, X[i], delta, parts[i]) for i in range(blocks)]
+        T, X = new[0][0], [x for _, x in new]
+    return T, torch.cat(X)
+
+
+def _distributed_ba(torch, dev, mesh) -> dict:
+    """`ba_solve_distributed` on bench.py's 20 x 5120 problem against
+    `ba_solve` and against the same landmark blocks summed in one process
+    on the same card; the all-reduce's time per iteration."""
+    from visualodometry_tpu_torch.ba import ba_solve
+    from visualodometry_tpu_torch.parallel import ba_solve_distributed
+
+    prob = _ba_solve_problem(torch, dev)
+    ref = ba_solve(prob, iters=8, damping=1e-4)
+    T_blk, X_blk = ba_split_reference(prob, mesh.shape["map"], 8, 1e-4)
+    out = ba_solve_distributed(prob, mesh, iters=8, damping=1e-4)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    ba_solve_distributed(prob, mesh, iters=8, damping=1e-4)
+    _sync(torch, dev)
+    wall = (time.perf_counter() - t0) * 1e3
+    P = prob.T_cw.shape[0]
+    return dict(dT=float((out.T_cw - ref.T_cw).abs().max()),
+                dX=float((out.X - ref.X).abs().max()),
+                dT_blocks=float((out.T_cw - T_blk).abs().max()),
+                dX_blocks=float((out.X - X_blk).abs().max()), solve_ms=wall,
+                allreduce_ms=_allreduce_ms(torch, dev, mesh.group("map"), P * P * 36 + P * 6))
+
+
+def _gloo_rank(rank: int, world: int, port: int, queue, device: str):
+    """One of the ranks of phase_distributed_ba's gloo pass (a spawned
+    process): tensors on `device` (the card) over gloo, map = world."""
+    import traceback
+
+    import torch
+
+    from visualodometry_tpu_torch.parallel import initialize_runtime, make_mesh, shutdown_runtime
+
+    try:
+        dev = torch.device(device)
+        spec = initialize_runtime(f"127.0.0.1:{port}", world, rank, device=dev,
+                                  backend="gloo", timeout_s=120.0)
+        mesh = make_mesh(num_map=world, device=dev)
+        queue.put((rank, dict(_distributed_ba(torch, dev, mesh), backend=spec.backend)))
+    except Exception:
+        queue.put((rank, traceback.format_exc()))
+    finally:
+        shutdown_runtime()
+
+
+def phase_distributed_ba(torch, dev, card):
+    """The distributed Schur BA on the card, against `ba_solve` at
+    phase_ba_solve's limits: a one-rank mesh under an NCCL process group of
+    world size 1, then two spawned processes sharing the card over gloo with
+    CUDA tensors (NCCL refuses two ranks on one GPU), map = 2."""
+    import multiprocessing
+    import queue as queue_mod
+    import socket
+
+    from visualodometry_tpu_torch.parallel import initialize_runtime, make_mesh, shutdown_runtime
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    spec = initialize_runtime(f"127.0.0.1:{free_port()}", 1, 0, device=dev)
+    try:
+        want = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+        check(spec.backend == want, f"one-rank runtime on {spec.backend}, not {want}")
+        res = {f"{want}, 1 rank": _distributed_ba(torch, dev, make_mesh(device=dev))}
+    finally:
+        shutdown_runtime()
+
+    world = 2
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=_gloo_rank, args=(r, world, port, q, str(dev)))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        for _ in range(world):
+            try:
+                rank, r = q.get(timeout=DIST_TIMEOUT_S)
+            except queue_mod.Empty:
+                raise AssertionError(f"a gloo rank sent nothing in {DIST_TIMEOUT_S} s")
+            check(not isinstance(r, str), f"gloo rank {rank} failed:\n{r}")
+            res[f"gloo, rank {rank} of {world}"] = r
+        for p in procs:
+            p.join(timeout=DIST_TIMEOUT_S)
+            check(not p.is_alive() and p.exitcode == 0, f"a gloo rank exited {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    t_tol, x_tol = BA_SOLVE_T_TOL, BA_SOLVE_X_TOL
+    for what, r in res.items():
+        log(f"ba_solve_distributed, 20 x 5120, 8 iterations, {what}: against ba_solve poses "
+            f"{r['dT']:.2e}, landmarks {r['dX']:.2e} m (limits {t_tol:g}, {x_tol:g}); against "
+            f"the same landmark blocks summed in one process poses {r['dT_blocks']:.2e}, "
+            f"landmarks {r['dX_blocks']:.2e} m; solve {r['solve_ms']:.2f} ms wall, one all-reduce "
+            f"of the reduced system {r['allreduce_ms']:.4f} ms (host clock); on {card}")
+        check(r["dT_blocks"] == 0.0 and r["dX_blocks"] == 0.0,
+              f"ba_solve_distributed ({what}) is not the block sums' arithmetic")
+        check(r["dT"] <= t_tol and r["dX"] <= x_tol,
+              f"ba_solve_distributed ({what}) disagrees with ba_solve: {r['dT']}, {r['dX']}")
+    return res
+
+
 def zero_launches():
     from visualodometry_tpu_torch.ops import match_top2, patches, pyramid
 
@@ -1340,7 +1691,8 @@ def main() -> int:
 
     kernels = [phase_match(torch, dev, smi), phase_patches(torch, dev),
                phase_blur(torch, dev, smi)]
-    launches, scene, u8 = phase_main_path(torch, dev, smi)
+    kernels[0]["lanes"] = phase_match_lanes(torch, dev, smi)
+    launches, scene, u8, main_summary = phase_main_path(torch, dev, smi)
     phase_match_real(torch, dev, u8)
     phase_engine(torch, dev, scene, u8, os.environ.get("TMPDIR", "/tmp"))
     phase_learned(torch, dev, smi, scene, u8, "superpoint")
@@ -1351,8 +1703,10 @@ def main() -> int:
     klt_launches = phase_klt(torch, dev, smi, scene, u8)
     phase_klt_paths(torch, dev, smi, u8)
     phase_ba_solve(torch, dev, smi)
+    phase_distributed_ba(torch, dev, smi)
     phase_main_ba(torch, dev, smi, scene, u8)
     phase_engine_ba(torch, dev, scene, u8, os.environ.get("TMPDIR", "/tmp"))
+    phase_multiseq(torch, dev, smi, scene, u8, main_summary)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1376,7 +1730,7 @@ def main() -> int:
             f"launches {k['launches']} on {smi}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_peak",
-            "bound_f32_cores_ms", "at_256d", "klt")
+            "bound_f32_cores_ms", "at_256d", "klt", "lanes")
     log(json.dumps({"kernels": [{key: k[key] for key in keys if key in k} for k in kernels]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

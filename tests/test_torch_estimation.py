@@ -306,9 +306,10 @@ def test_pnp_ransac_p3p_matches_jax(scene):
 
 @pytest.mark.parametrize("which", ["p3p", "8point"])
 def test_unported_solvers_raise(scene, which):
-    """The eight-point essential solver is not ported: it raises, not
-    falls back. P3P is ported; what raises there is a sample of the wrong
-    size (the DLT's six points) or an unknown solver name."""
+    """Each solver runs on a sample of its own size and raises, not falls
+    back, on a sample of another size or an unknown solver name: P3P takes
+    (H, 3), the eight-point essential solver (ported since the
+    multi-sequence slice, whose parity tests pin it) (H, 8)."""
     X, _, uv0, uv1, valid = scene
     if which == "p3p":
         _, tc = _cfgs(pnp_solver="p3p")
@@ -321,6 +322,65 @@ def test_unported_solvers_raise(scene, which):
                                   torch.zeros(4, 3, dtype=torch.long))
     else:
         _, tc = _cfgs(essential_solver="8point")
-        with pytest.raises(NotImplementedError):
+        idx = sample_valid_indices(torch.Generator().manual_seed(0), _t(valid), 16, 8)
+        res = tess.estimate_essential_ransac(_t(uv0), _t(uv1), _t(valid), _t(K), tc, idx)
+        assert res.E.shape == (3, 3) and bool(torch.isfinite(res.E).all())
+        assert bool(res.ok)
+        with pytest.raises(ValueError, match=r"\(H, 8\)"):
             tess.estimate_essential_ransac(_t(uv0), _t(uv1), _t(valid), _t(K), tc,
+                                           torch.zeros(4, 5, dtype=torch.long))
+        with pytest.raises(ValueError, match="unknown essential_solver"):
+            tess.estimate_essential_ransac(_t(uv0), _t(uv1), _t(valid), _t(K),
+                                           tc.replace(essential_solver="7point"),
                                            torch.zeros(4, 8, dtype=torch.long))
+
+
+def test_eight_point_system_and_solve_match_jax(scene):
+    """The eight-point stages on the same rows: the constraint rows
+    exactly; the per-sample solve (9 x 9 normal matrix, inverse iteration,
+    closed-form SVD projection) up to sign within 1e-4 of JAX's or, on a
+    sample whose null vector float32 defines worse, no farther from a
+    float64 solve than twice JAX's own distance from it (two float32
+    orders of one ill-defined vector); the weighted re-fit over all rows
+    within 1e-4."""
+    _, _, uv0, uv1, valid = scene
+    x0 = ((uv0 - K[:2, 2]) / K[0, 0]).astype(np.float32)
+    x1 = ((uv1 - K[:2, 2]) / K[0, 0]).astype(np.float32)
+    rows_j = np.asarray(jess._eight_point_system(jnp.asarray(x0), jnp.asarray(x1)))
+    rows_t = tess._eight_point_system(_t(x0), _t(x1)).numpy()
+    np.testing.assert_array_equal(rows_t, rows_j)
+    idx = np.asarray(jsample(jax.random.key(5), jnp.asarray(valid), 16, 8))
+    E_j = np.asarray(jess._solve_e_from_rows(jnp.asarray(rows_j[idx])))
+    E_t = tess._solve_e_from_rows(_t(rows_j[idx])).numpy()
+    E_64 = tess._solve_e_from_rows(_t(rows_j[idx]).double()).numpy()
+    for a, b, c in zip(E_t, E_j, E_64):
+        jax_err = min(np.abs(b - c).max(), np.abs(b + c).max())
+        assert _same_up_to_sign(a, b, 1e-4) or _same_up_to_sign(a, c, 2.0 * jax_err)
+    w = valid.astype(np.float32)
+    E_wj = np.asarray(jess._solve_e_from_rows(jnp.asarray(rows_j), jnp.asarray(w)))
+    E_wt = tess._solve_e_from_rows(_t(rows_j), _t(w)).numpy()
+    assert _same_up_to_sign(E_wt, E_wj, 1e-4)
+
+
+def test_eight_point_ransac_matches_jax(scene):
+    """The eight-point RANSAC on identical (H, 8) samples: the same
+    winner, so the same linear re-fit on its inliers. E up to sign within
+    1e-4, the inlier sets equal up to 1% (points at the Sampson threshold),
+    the count gate equal, and the recovered pose on its own E within 1e-3
+    of JAX's."""
+    X, T1, uv0, uv1, valid = scene
+    jc, tc = _cfgs(essential_solver="8point")
+    key = jax.random.key(3)
+    args_j = (jnp.asarray(uv0), jnp.asarray(uv1), jnp.asarray(valid), jnp.asarray(K))
+    res_j = jax.jit(lambda a, b, v, k: jess.estimate_essential_ransac(a, b, v, k, jc, key))(*args_j)
+    idx = jsample(key, jnp.asarray(valid), jc.essential_hypotheses, 8)
+    res_t = tess.estimate_essential_ransac(
+        _t(uv0), _t(uv1), _t(valid), _t(K), tc, _t(np.asarray(idx)).long()
+    )
+    assert bool(res_t.ok) == bool(res_j.ok)
+    assert _same_up_to_sign(res_t.E.numpy(), np.asarray(res_j.E), 1e-4)
+    assert (res_t.inliers.numpy() != np.asarray(res_j.inliers)).sum() <= 0.01 * N
+    R_j, t_j = jess.recover_pose(res_j.E, *args_j[:2], res_j.inliers, args_j[3])
+    R_t, t_t = tess.recover_pose(res_t.E, _t(uv0), _t(uv1), res_t.inliers, _t(K))
+    np.testing.assert_allclose(R_t.numpy(), np.asarray(R_j), atol=1e-3)
+    np.testing.assert_allclose(t_t.numpy(), np.asarray(t_j), atol=1e-3)

@@ -201,6 +201,42 @@ def test_match_top2_duplicate_rows_in_different_splits(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize(
+    "B,n0,n1,d", [(4, 4096, 4096, 128), (3, 1000, 777, 128), (2, 64, 300, 256), (5, 33, 5, 64)]
+)
+def test_match_top2_lanes_match_plain_and_2d(cuda_device, B, n0, n1, d):
+    """B lanes in one launch: each lane within the 2-D test's tolerances of
+    the plain version, and bit-equal to its own 2-D launch (a distance does
+    not depend on the split count, and the merge keeps the lowest index)."""
+    rng = np.random.default_rng(B * n0 + n1)
+    sets = [_descriptors(rng, n0, n1, d, 0.1) for _ in range(B)]
+    a = [torch.as_tensor(np.stack(x), device=cuda_device) for x in zip(*sets)]
+    before = mt.launches
+    b_k, s_k, i_k = mt.match_top2(*a)
+    assert mt.launches == before + 1 and b_k.shape == (B, n0)
+    b_p, s_p, i_p = mt._top2_torch(*a)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(b_k, b_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s_k, s_p, rtol=1e-5, atol=1e-5)
+    sep = (s_p - b_p) > 1e-4
+    assert torch.equal(i_k[sep], i_p[sep])
+    for lane in range(B):
+        one = mt.match_top2(a[0][lane], a[1][lane], a[2][lane])
+        for x, y in zip((b_k[lane], s_k[lane], i_k[lane]), one):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_match_top2_one_lane_is_the_2d_launch(cuda_device):
+    rng = np.random.default_rng(7)
+    a = [torch.as_tensor(x, device=cuda_device) for x in _descriptors(rng, 4096, 4096, 128)]
+    two_d = mt.match_top2(*a)
+    one_lane = mt.match_top2(*(x[None] for x in a))
+    for x, y in zip(two_d, one_lane):
+        assert torch.equal(x, y[0])
+
+
+@pytest.mark.cuda
 def test_match_top2_empty_query_set(cuda_device):
     d0 = torch.zeros(0, 16, device=cuda_device)
     d1 = torch.ones(10, 16, device=cuda_device)

@@ -20,6 +20,7 @@ from visualodometry_tpu_torch.core.klt_step import (  # noqa: F401
 from visualodometry_tpu_torch.core.runner import (  # noqa: F401
     apply_pose_delta,
     make_chunked_pipeline_fn,
+    make_chunked_step_fn,
 )
 from visualodometry_tpu_torch.core.checkpoint import (  # noqa: F401
     load_state,

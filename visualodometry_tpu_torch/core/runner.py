@@ -1,7 +1,8 @@
 """Chunked sequence runner: extraction batched over a chunk, then the step.
 
-Port of `make_chunked_pipeline_fn` and `apply_pose_delta` from
-visualodometry_tpu/core/runner.py, with both frontends. SIFT: the pyramid
+Port of `make_chunked_step_fn`, `make_chunked_pipeline_fn` and
+`apply_pose_delta` from visualodometry_tpu/core/runner.py, with both
+frontends. `make_chunked_step_fn` steps precomputed features. SIFT: the pyramid
 stage runs once for the whole chunk (its band matmuls gain a batch axis),
 detection and description frame by frame. SuperPoint: the network runs
 once on the chunk's frames, keypoint selection frame by frame. The VO step
@@ -19,8 +20,47 @@ from visualodometry_tpu_torch._device import resolve_device
 from visualodometry_tpu_torch.config import VOConfig
 from visualodometry_tpu_torch.core.state import StepOutput, VOState
 from visualodometry_tpu_torch.core.step import make_step_fn
+from visualodometry_tpu_torch.frontend.interface import Features
 from visualodometry_tpu_torch.frontend.sift import make_batched_extract_fn
 from visualodometry_tpu_torch.frontend.superpoint import make_batched_superpoint_extract_fn
+
+
+def unstack_features(feats):
+    """A chunk's features frame by frame: a stacked `Features` (kps (C, N,
+    2), desc (C, N, D), valid (C, N)) cut along its leading axis into a
+    list; any other iterable of `Features` as it is."""
+    if isinstance(feats, Features):
+        return [Features(*(x[i] for x in feats)) for i in range(feats.kps.shape[0])]
+    return feats
+
+
+def stack_outputs(outs) -> StepOutput:
+    """Per-frame `StepOutput`s stacked along a new leading axis."""
+    return StepOutput(*(torch.stack(x) for x in zip(*outs)))
+
+
+def make_chunked_step_fn(
+    cfg: VOConfig, K, device=None, sampler=None, matcher_params=None
+) -> Callable:
+    """Chunk runner over precomputed features.
+
+    Returns `run_chunk(state, feats) -> (state, outputs)`: `feats` is an
+    iterable of `Features` or one stacked along a leading chunk axis, the outputs a
+    `StepOutput` stacked over the chunk's frames. The port of the JAX
+    runner's `lax.scan` of the step is a loop over the frames. `sampler`
+    and `matcher_params` go to `make_step_fn`; `run_chunk.step` is the step.
+    """
+    step = make_step_fn(cfg, K, device=device, sampler=sampler, matcher_params=matcher_params)
+
+    def run_chunk(state: VOState, feats) -> tuple[VOState, StepOutput]:
+        outs = []
+        for f in unstack_features(feats):
+            state, out = step(state, f)
+            outs.append(out)
+        return state, stack_outputs(outs)
+
+    run_chunk.step = step
+    return run_chunk
 
 
 def make_chunked_pipeline_fn(
@@ -60,7 +100,7 @@ def make_chunked_pipeline_fn(
         for f in feats:
             state, out = step(state, f)
             outs.append(out)
-        return state, feats, StepOutput(*(torch.stack(x) for x in zip(*outs)))
+        return state, feats, stack_outputs(outs)
 
     if not enable_ba:
 

@@ -7,7 +7,11 @@ landmark map is a fixed-capacity ring buffer: id `pid` lives in slot
 `torch.Generator` it owns (core/step.py).
 
 `state_from_numpy` / `state_to_numpy` carry a JAX `VOState` (leaves as
-numpy arrays) into the port and back.
+numpy arrays) into the port and back; a batched JAX state (every leaf with
+a leading lane axis, as `init_batched_state` makes it) comes across the
+same way. `stack_states` / `lane_state` move between one state per lane
+and a batched state, for the step over several sequences
+(parallel/multiseq.py).
 """
 
 from __future__ import annotations
@@ -152,6 +156,24 @@ def register_landmarks(map_state: MapState, pts3d: torch.Tensor, valid: torch.Te
 
 def features_as_keyframe(feats: Features, ids: torch.Tensor, T_wc: torch.Tensor) -> Keyframe:
     return Keyframe(kps=feats.kps, desc=feats.desc, kp_valid=feats.valid, ids=ids, T_wc=T_wc)
+
+
+def _tree_map(fn, *trees):
+    """`fn` over the tensors of nested NamedTuples of one structure."""
+    if hasattr(trees[0], "_fields"):
+        return type(trees[0])(*(_tree_map(fn, *xs) for xs in zip(*trees)))
+    return fn(*trees)
+
+
+def stack_states(states):
+    """One state per lane -> one with a leading lane axis; likewise for any
+    NamedTuple of tensors (`StepOutput`, `Features`)."""
+    return _tree_map(lambda *xs: torch.stack(xs), *states)
+
+
+def lane_state(batched, b: int):
+    """Lane `b` of a batched state (or `StepOutput`): views, no copy."""
+    return _tree_map(lambda x: x[b], batched)
 
 
 def _as_dict(x) -> dict:

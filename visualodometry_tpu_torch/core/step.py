@@ -13,6 +13,9 @@ branch are read back to the host and the branch is a Python `if`:
 
 So a tracking frame costs two host synchronisations. Everything else
 (matching, RANSAC, refinement, map updates) is queued without waiting.
+`StepParts` holds the step in the pieces between those reads, so that the
+step over several sequences (parallel/multiseq.py) can make each read once
+for all of them.
 
 Branch map (reference line numbers, src/modules/vo.py): bootstrap 56-61,
 init flow gate 75-85, init E + recoverPose 87-110, track lookup +
@@ -199,53 +202,53 @@ def smoothed_pose(cfg: VOConfig, state, T_cw: torch.Tensor) -> SmoothedPose:
     )
 
 
-def make_step_fn(
-    cfg: VOConfig, K, device=None, sampler: Sampler | None = None, matcher_params=None
-) -> Callable[[VOState, Features], tuple[VOState, StepOutput]]:
-    """Build the step closure for a config + intrinsics on `device`.
+class Front(NamedTuple):
+    """A frame's state after matching, before the host reads its branch."""
 
-    cfg.matcher_type picks the matcher: "ratio" (kNN + Lowe, kernel K1) or
-    "attention" (`make_attention_match_fn`, with `matcher_params`).
-    `sampler(valid, H, k) -> (H, k)` draws the RANSAC minimal samples; by
-    default `sample_valid_indices` from a `torch.Generator` on the device
-    seeded with cfg.seed. Tests pass the JAX engine's draws instead. The
-    returned step carries that generator as `step.generator` (None with a
-    custom sampler), so a checkpoint can hold its state, and its matcher
-    as `step.match`.
-    """
-    dev = resolve_device(device)
-    if cfg.matcher_type == "attention":
-        match_fn = make_attention_match_fn(cfg, dev, matcher_params)
-    elif cfg.matcher_type == "ratio":
+    match_idx: torch.Tensor  # (N,) int32
+    match_valid: torch.Tensor  # (N,) bool
+    median_flow: torch.Tensor  # ()
+    num_matches: torch.Tensor  # () int32
+    uv_ref: torch.Tensor  # (N, 2) keyframe keypoints
+    uv_curr: torch.Tensor  # (N, 2) their matches in the frame
+    lm_pts: torch.Tensor  # (N, 3) the keyframe keypoints' landmarks
+    pnp_valid: torch.Tensor  # (N,) matched with a live landmark
+    gates: torch.Tensor  # (5,) bool: has_keyframe, initialized, few matches,
+    #                      low flow, enough usable landmarks
 
-        def match_fn(kf: Keyframe, feats: Features) -> MatchResult:
-            return match_descriptors(
-                kf.desc, kf.kp_valid, feats.desc, feats.valid,
-                ratio=cfg.lowe_ratio, mutual=cfg.mutual_check,
-            )
-    else:
-        raise ValueError(f"make_step_fn: unknown matcher_type {cfg.matcher_type!r}")
-    K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
-    gen = None
-    if sampler is None:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(cfg.seed)
 
-        def sampler(valid, num_hypotheses, sample_size):
-            return sample_valid_indices(gen, valid, num_hypotheses, sample_size)
+class Queued(NamedTuple):
+    """A frame whose branch is chosen: its device work is queued and, where
+    the branch waits on a solver, `flags` holds the scalars to read (None
+    once the frame is done: then `state` and `out` are its result)."""
 
-    ess_k = 5 if cfg.essential_solver == "5point" else 8
-    pnp_k = pnp_sample_size(cfg)
-    min_pool = max(cfg.min_inliers, cfg.min_init_landmarks)
+    state: VOState
+    out: StepOutput | None
+    flags: torch.Tensor | None
+    finish: Callable | None  # finish(flags as Python values) -> Queued
 
-    def full(value, dtype):
-        return torch.full((), value, dtype=dtype, device=dev)
 
-    def _output(
-        state, n, *, speed=None, is_keyframe=False, kf_reason=0,
+class StepParts:
+    """The VO step in the pieces that a step over several sequences
+    interleaves (parallel/multiseq.py): `front` after matching, `queue` once
+    the branch gates are on the host, `Queued.finish` once a solver's flags
+    are. One sequence's step (`make_step_fn`) runs them in order."""
+
+    def __init__(self, cfg: VOConfig, K: torch.Tensor, dev: torch.device):
+        self.cfg, self.K, self.dev = cfg, K, dev
+        self.ess_k = 5 if cfg.essential_solver == "5point" else 8
+        self.pnp_k = pnp_sample_size(cfg)
+        self.min_pool = max(cfg.min_inliers, cfg.min_init_landmarks)
+
+    def full(self, value, dtype):
+        return torch.full((), value, dtype=dtype, device=self.dev)
+
+    def output(
+        self, state, n, *, speed=None, is_keyframe=False, kf_reason=0,
         did_reset=False, median_flow=None, num_tracked=None,
         num_matches=None, curr_ids=None, match_idx=None, match_valid=None,
     ) -> StepOutput:
+        full, dev = self.full, self.dev
         return StepOutput(
             T_wc=state.T_wc,
             speed=full(0.0, torch.float32) if speed is None else speed.to(torch.float32),
@@ -274,7 +277,7 @@ def make_step_fn(
             ),
         )
 
-    def _create_keyframe(state, feats, curr_ids, match_idx, match_valid):
+    def create_keyframe(self, state, feats, curr_ids, match_idx, match_valid):
         """Triangulate unmatched-to-map matches, register, swap keyframe."""
         kf = state.keyframe
         T_cw_ref = se3_inverse(kf.T_wc)
@@ -283,7 +286,7 @@ def make_step_fn(
         matched_curr_ids = torch.where(match_valid, curr_ids[mi], 0)
         no_id = match_valid & (matched_curr_ids == -1)
         pts3d, tri_valid = triangulate_points(
-            T_cw_ref, T_cw_curr, kf.kps, feats.kps[mi], K, cfg, valid_in=no_id
+            T_cw_ref, T_cw_curr, kf.kps, feats.kps[mi], self.K, self.cfg, valid_in=no_id
         )
         new_map, new_ids = register_landmarks(state.map, pts3d, tri_valid)
         n = curr_ids.shape[0]
@@ -291,13 +294,13 @@ def make_step_fn(
         new_kf = features_as_keyframe(feats, curr_ids, state.T_wc)
         n_new = torch.sum((new_ids >= 0).to(torch.int32))
         state = state._replace(
-            map=new_map, keyframe=new_kf, has_keyframe=full(True, torch.bool)
+            map=new_map, keyframe=new_kf, has_keyframe=self.full(True, torch.bool)
         )
         return state, curr_ids, n_new
 
-    def _reset(state: VOState) -> VOState:
+    def reset(self, state: VOState) -> VOState:
         """Failure reset (reference: src/modules/vo.py:290-299)."""
-        kf = state.keyframe
+        kf, dev = state.keyframe, self.dev
         cleared_kf = Keyframe(
             kps=torch.zeros_like(kf.kps),
             desc=torch.zeros_like(kf.desc),
@@ -306,129 +309,211 @@ def make_step_fn(
             T_wc=torch.eye(4, dtype=torch.float32, device=dev),
         )
         return state._replace(
-            initialized=full(False, torch.bool),
-            has_keyframe=full(False, torch.bool),
+            initialized=self.full(False, torch.bool),
+            has_keyframe=self.full(False, torch.bool),
             keyframe=cleared_kf,
-            map=init_map(cfg, dev)._replace(next_id=state.map.next_id),
+            map=init_map(self.cfg, dev)._replace(next_id=state.map.next_id),
             last_pos=torch.zeros(3, dtype=torch.float32, device=dev),
-            baseline_speed=full(1.0, torch.float32),
+            baseline_speed=self.full(1.0, torch.float32),
         )
 
-    def step(state: VOState, feats: Features) -> tuple[VOState, StepOutput]:
-        n = feats.num_slots
-        kf = state.keyframe
-
-        match = match_fn(kf, feats)
+    def front(self, state: VOState, feats: Features, match: MatchResult) -> Front:
+        kf, cfg = state.keyframe, self.cfg
         match_idx, match_valid = match.idx, match.valid
         num_matches = torch.sum(match_valid.to(torch.int32))
-        uv_ref = kf.kps
         uv_curr = feats.kps[match_idx.long()]
-        flow = torch.linalg.vector_norm(uv_ref - uv_curr, dim=-1)
+        flow = torch.linalg.vector_norm(kf.kps - uv_curr, dim=-1)
         median_flow = masked_median(flow, match_valid)
-        curr_ids0 = torch.full((n,), -1, dtype=torch.int32, device=dev)
         lm_pts, lm_live = landmark_lookup(state.map, kf.ids)
         pnp_valid = match_valid & lm_live
         usable = torch.sum(pnp_valid.to(torch.int32))
-        matched = dict(
-            match_idx=match_idx, match_valid=match_valid,
-            median_flow=median_flow, num_matches=num_matches,
+        gates = torch.stack([
+            state.has_keyframe, state.initialized, num_matches < self.min_pool,
+            median_flow < cfg.min_median_flow, usable > cfg.min_inliers,
+        ])
+        return Front(
+            match_idx=match_idx, match_valid=match_valid, median_flow=median_flow,
+            num_matches=num_matches, uv_ref=kf.kps, uv_curr=uv_curr, lm_pts=lm_pts,
+            pnp_valid=pnp_valid, gates=gates,
         )
 
-        # the one host read that picks the frame's branch
-        has_kf, initialized, few_matches, low_flow, enough_usable = torch.stack([
-            state.has_keyframe, state.initialized, num_matches < min_pool,
-            median_flow < cfg.min_median_flow, usable > cfg.min_inliers,
-        ]).tolist()
+    def done(self, state, out) -> Queued:
+        return Queued(state._replace(frame_id=state.frame_id + 1), out, None, None)
 
+    def queue(self, state, feats, front: Front, gates, sampler: Sampler) -> Queued:
+        """Take the branch that `gates` (`front.gates` read back) picks and
+        queue its device work; a solver's flags are left to read."""
+        n, dev = feats.num_slots, self.dev
+        has_kf, initialized, few_matches, low_flow, enough_usable = gates
+        curr_ids0 = torch.full((n,), -1, dtype=torch.int32, device=dev)
+        matched = dict(
+            match_idx=front.match_idx, match_valid=front.match_valid,
+            median_flow=front.median_flow, num_matches=front.num_matches,
+        )
         if not has_kf:  # bootstrap: adopt the first keyframe
             new_kf = features_as_keyframe(
                 feats, curr_ids0, torch.eye(4, dtype=torch.float32, device=dev)
             )
-            state = state._replace(keyframe=new_kf, has_keyframe=full(True, torch.bool))
-            out = _output(state, n, curr_ids=curr_ids0)
-        elif not initialized:
-            state, out = initialize(
-                state, feats, curr_ids0, few_matches, low_flow, uv_ref, uv_curr, matched
+            state = state._replace(keyframe=new_kf, has_keyframe=self.full(True, torch.bool))
+            return self.done(state, self.output(state, n, curr_ids=curr_ids0))
+        if not initialized:
+            return self.initialize(
+                state, feats, front, curr_ids0, few_matches, low_flow, matched, sampler
             )
-        elif not enough_usable:  # lost (reference: vo.py:243-245)
-            state = _reset(state)
-            out = _output(state, n, did_reset=True, **matched)
-        else:
-            state, out = track(state, feats, curr_ids0, lm_pts, pnp_valid, uv_curr, matched)
-        state = state._replace(frame_id=state.frame_id + 1)
-        return state, out
+        if not enough_usable:  # lost (reference: vo.py:243-245)
+            state = self.reset(state)
+            return self.done(state, self.output(state, n, did_reset=True, **matched))
+        return self.track(state, feats, front, curr_ids0, matched, sampler)
 
-    def initialize(state, feats, curr_ids0, few_matches, low_flow, uv_ref, uv_curr, matched):
-        n = feats.num_slots
-        match_idx, match_valid = matched["match_idx"], matched["match_valid"]
+    def initialize(self, state, feats, front, curr_ids0, few_matches, low_flow,
+                   matched, sampler) -> Queued:
+        cfg, dev, n = self.cfg, self.dev, feats.num_slots
         if few_matches:
             # the adopted keyframe yields (almost) no matches: replace it
             new_kf = features_as_keyframe(
                 feats, curr_ids0, torch.eye(4, dtype=torch.float32, device=dev)
             )
             state = state._replace(keyframe=new_kf)
-            return state, _output(state, n, curr_ids=curr_ids0)
+            return self.done(state, self.output(state, n, curr_ids=curr_ids0))
+
+        def waiting() -> Queued:  # still not initialized
+            return self.done(state, self.output(state, n, curr_ids=curr_ids0, **matched))
+
         if low_flow:
-            return state, _output(state, n, curr_ids=curr_ids0, **matched)
-        idx = sampler(match_valid, cfg.essential_hypotheses, ess_k)
-        ess = estimate_essential_ransac(uv_ref, uv_curr, match_valid, K, cfg, idx)
-        if not bool(ess.ok):
-            return state, _output(state, n, curr_ids=curr_ids0, **matched)
-        R, t = recover_pose(ess.E, uv_ref, uv_curr, ess.inliers, K)
-        T_cw = make_T(R, t * cfg.global_scale)
-        T_wc = se3_inverse(T_cw)
-        init_dist = torch.linalg.vector_norm(T_wc[:3, 3])
-        state1 = state._replace(
-            T_wc=T_wc,
-            last_pos=torch.zeros(3, dtype=torch.float32, device=dev),
-            baseline_speed=init_dist,
-            initialized=full(True, torch.bool),
-        )
-        state1, curr_ids, n_new = _create_keyframe(
-            state1, feats, curr_ids0, match_idx, match_valid
-        )
-        if cfg.min_init_landmarks > 0 and int(n_new) < cfg.min_init_landmarks:
-            # init-quality gate: too few landmarks, wait for a better pair
-            return state, _output(state, n, curr_ids=curr_ids0, **matched)
-        return state1, _output(
-            state1, n, curr_ids=curr_ids, speed=init_dist, is_keyframe=True, **matched
+            return waiting()
+        match_valid = front.match_valid
+        idx = sampler(match_valid, cfg.essential_hypotheses, self.ess_k)
+        ess = estimate_essential_ransac(
+            front.uv_ref, front.uv_curr, match_valid, self.K, cfg, idx
         )
 
-    def track(state, feats, curr_ids0, lm_pts, pnp_valid, uv_curr, matched):
-        n = feats.num_slots
+        def finish(flags) -> Queued:
+            (ess_ok,) = flags
+            if not ess_ok:
+                return waiting()
+            R, t = recover_pose(ess.E, front.uv_ref, front.uv_curr, ess.inliers, self.K)
+            T_wc = se3_inverse(make_T(R, t * cfg.global_scale))
+            init_dist = torch.linalg.vector_norm(T_wc[:3, 3])
+            state1 = state._replace(
+                T_wc=T_wc,
+                last_pos=torch.zeros(3, dtype=torch.float32, device=dev),
+                baseline_speed=init_dist,
+                initialized=self.full(True, torch.bool),
+            )
+            state1, curr_ids, n_new = self.create_keyframe(
+                state1, feats, curr_ids0, front.match_idx, match_valid
+            )
+            inited = self.done(state1, self.output(
+                state1, n, curr_ids=curr_ids, speed=init_dist, is_keyframe=True, **matched
+            ))
+            if cfg.min_init_landmarks <= 0:
+                return inited
+
+            def gate(flags) -> Queued:
+                # init-quality gate: too few landmarks, wait for a better pair
+                return inited if flags[0] else waiting()
+
+            return Queued(state, None, (n_new >= cfg.min_init_landmarks).reshape(1), gate)
+
+        return Queued(state, None, ess.ok.reshape(1), finish)
+
+    def track(self, state, feats, front, curr_ids0, matched, sampler) -> Queued:
+        cfg, n = self.cfg, feats.num_slots
         kf_ids = state.keyframe.ids
-        median_flow = matched["median_flow"]
-        idx = sampler(pnp_valid, cfg.pnp_hypotheses, pnp_k)
+        idx = sampler(front.pnp_valid, cfg.pnp_hypotheses, self.pnp_k)
         pnp = solve_pnp_ransac(
-            lm_pts, uv_curr, pnp_valid, K, cfg, idx, T_init=se3_inverse(state.T_wc)
+            front.lm_pts, front.uv_curr, front.pnp_valid, self.K, cfg, idx,
+            T_init=se3_inverse(state.T_wc),
         )
         # the pnp_ok branch's device work is queued before the host read
         moved = smoothed_pose(cfg, state, pnp.T_cw)
         # landmark-id propagation (vo.py:206-210)
         prop = pnp.inliers
-        mi = matched["match_idx"].long()
+        mi = front.match_idx.long()
         curr_ids = scatter_drop(
             curr_ids0, torch.where(prop, mi, n), torch.where(prop, kf_ids, -1)
         )
         num_tracked = torch.sum((curr_ids != -1).to(torch.int32))
-        kf_flow = median_flow > cfg.min_median_flow
+        kf_flow = front.median_flow > cfg.min_median_flow
         kf_low = num_tracked < cfg.kf_min_tracked
         is_kf_t = kf_flow | kf_low
         reason = torch.where(kf_flow, 1, torch.where(kf_low, 2, 0))
 
-        pnp_ok, is_kf = torch.stack([pnp.ok, is_kf_t]).tolist()
-        if not pnp_ok:  # (reference: vo.py:240-242)
-            state = _reset(state)
-            return state, _output(state, n, did_reset=True, **matched)
-        state = state._replace(**moved.state_fields)
-        if is_kf:
-            state, curr_ids, _ = _create_keyframe(
-                state, feats, curr_ids, matched["match_idx"], matched["match_valid"]
+        def finish(flags) -> Queued:
+            pnp_ok, is_kf = flags
+            if not pnp_ok:  # (reference: vo.py:240-242)
+                st = self.reset(state)
+                return self.done(st, self.output(st, n, did_reset=True, **matched))
+            st = state._replace(**moved.state_fields)
+            ids = curr_ids
+            if is_kf:
+                st, ids, _ = self.create_keyframe(
+                    st, feats, ids, front.match_idx, front.match_valid
+                )
+            return self.done(st, self.output(
+                st, n, curr_ids=ids, num_tracked=num_tracked,
+                speed=moved.speed, is_keyframe=bool(is_kf), kf_reason=reason, **matched,
+            ))
+
+        return Queued(state, None, torch.stack([pnp.ok, is_kf_t]), finish)
+
+
+def make_match_fn(cfg: VOConfig, device, matcher_params=None):
+    """`match(kf, feats) -> MatchResult` for cfg.matcher_type: "ratio"
+    (kNN + Lowe, kernel K1) or "attention" (`make_attention_match_fn`)."""
+    if cfg.matcher_type == "attention":
+        return make_attention_match_fn(cfg, device, matcher_params)
+    if cfg.matcher_type == "ratio":
+
+        def match_fn(kf: Keyframe, feats: Features) -> MatchResult:
+            return match_descriptors(
+                kf.desc, kf.kp_valid, feats.desc, feats.valid,
+                ratio=cfg.lowe_ratio, mutual=cfg.mutual_check,
             )
-        return state, _output(
-            state, n, curr_ids=curr_ids, num_tracked=num_tracked,
-            speed=moved.speed, is_keyframe=bool(is_kf), kf_reason=reason, **matched,
-        )
+
+        return match_fn
+    raise ValueError(f"make_step_fn: unknown matcher_type {cfg.matcher_type!r}")
+
+
+def generator_sampler(gen: torch.Generator) -> Sampler:
+    """The step's default sampler: `sample_valid_indices` from `gen`."""
+
+    def sampler(valid, num_hypotheses, sample_size):
+        return sample_valid_indices(gen, valid, num_hypotheses, sample_size)
+
+    return sampler
+
+
+def make_step_fn(
+    cfg: VOConfig, K, device=None, sampler: Sampler | None = None, matcher_params=None
+) -> Callable[[VOState, Features], tuple[VOState, StepOutput]]:
+    """Build the step closure for a config + intrinsics on `device`.
+
+    cfg.matcher_type picks the matcher: "ratio" (kNN + Lowe, kernel K1) or
+    "attention" (`make_attention_match_fn`, with `matcher_params`).
+    `sampler(valid, H, k) -> (H, k)` draws the RANSAC minimal samples; by
+    default `sample_valid_indices` from a `torch.Generator` on the device
+    seeded with cfg.seed. Tests pass the JAX engine's draws instead. The
+    returned step carries that generator as `step.generator` (None with a
+    custom sampler), so a checkpoint can hold its state, and its matcher
+    as `step.match`.
+    """
+    dev = resolve_device(device)
+    match_fn = make_match_fn(cfg, dev, matcher_params)
+    parts = StepParts(cfg, torch.as_tensor(np.asarray(K, np.float32), device=dev), dev)
+    gen = None
+    if sampler is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(cfg.seed)
+        sampler = generator_sampler(gen)
+
+    def step(state: VOState, feats: Features) -> tuple[VOState, StepOutput]:
+        front = parts.front(state, feats, match_fn(state.keyframe, feats))
+        # the one host read that picks the frame's branch
+        q = parts.queue(state, feats, front, front.gates.tolist(), sampler)
+        while q.flags is not None:  # a solver's flags: one more read each
+            q = q.finish(q.flags.tolist())
+        return q.state, q.out
 
     step.generator = gen
     step.match = match_fn

@@ -10,6 +10,11 @@
 // second-best d2 (minimum over all columns except the argbest, so a
 // duplicate of the best distance is the second) and the argbest (lowest
 // index on ties) -- the semantics of `_top2_jnp` (frontend/matcher.py).
+// With `lanes` > 1 the inputs are `lanes` independent problems stacked on a
+// leading axis, (lanes, n0, d), (lanes, n1, d), (lanes, n1), matched in one
+// launch: the lane is the grid's third axis, as `pallas_call`'s batching
+// rule adds a grid axis to the TPU kernel under `jax.vmap` (the VO step of
+// several sequences). Each lane is computed exactly as a one-lane launch.
 //
 // What bounds it on an H100: tensor operations. The ratio test needs
 // float32-grade distances, so every float32 value x is split into
@@ -36,8 +41,9 @@
 //    accumulator fragment into distances and keeps a running (best, second,
 //    argbest) for its two rows; the four lanes that share a row merge by
 //    shuffle. The (n0, n1) matrix never reaches device memory.
-//  - The grid is query tiles x S train splits, S chosen by the wrapper so
-//    that the blocks fill the SMs (4 at the main path: 32 x 4 blocks).
+//  - The grid is query tiles x S train splits x lanes, S chosen by the
+//    wrapper so that the blocks fill the SMs (4 at the main path: 32 x 4
+//    blocks; 1 at four lanes of 4096 queries: 32 x 1 x 4).
 //    Each block writes its partial triple to scratch; `merge_splits_kernel`
 //    combines the S partials of a row in split order with the same rule as
 //    the in-block merge (lower index wins a tie, a duplicate of the best
@@ -202,6 +208,12 @@ match_top2_kernel(const float* __restrict__ d0, const float* __restrict__ d1,
                   float* __restrict__ pb2, int* __restrict__ pi1, int n0,
                   int n1, int d, int vec0, int vec1) {
   extern __shared__ uint8_t smem_raw[];
+  // this block's lane of the batch: its problem's inputs and partials
+  d0 += (size_t)blockIdx.z * n0 * d;
+  d1 += (size_t)blockIdx.z * n1 * d;
+  valid1 += (size_t)blockIdx.z * n1;
+  const size_t part0 = (size_t)blockIdx.z * gridDim.y * n0;
+
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int wg = tid >> 7;    // warpgroup: query rows 64 wg .. 64 wg + 63
@@ -374,7 +386,7 @@ match_top2_kernel(const float* __restrict__ d0, const float* __restrict__ d1,
     }
     const int r = row0 + frow + 8 * h;
     if ((lane & 3) == 0 && r < n0) {
-      const size_t o = (size_t)blockIdx.y * n0 + r;
+      const size_t o = part0 + (size_t)blockIdx.y * n0 + r;
       pb1[o] = st[h].b1;
       pb2[o] = st[h].b2;
       pi1[o] = st[h].i1;
@@ -382,18 +394,22 @@ match_top2_kernel(const float* __restrict__ d0, const float* __restrict__ d1,
   }
 }
 
-// Combine the S partial triples of each query row, in split order.
+// Combine the S partial triples of each query row, in split order; the
+// rows of all lanes are one flat range, lane-major.
 __global__ void merge_splits_kernel(const float* __restrict__ pb1,
                                     const float* __restrict__ pb2,
                                     const int* __restrict__ pi1,
                                     float* __restrict__ best,
                                     float* __restrict__ second,
-                                    int* __restrict__ idx, int n0, int S) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n0) return;
+                                    int* __restrict__ idx, int n0, int S,
+                                    int lanes) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= (long long)n0 * lanes) return;
+  const long long z = r / n0;
+  const size_t base = (size_t)z * S * n0 + (size_t)(r - z * n0);
   Top2 s = {INFINITY, BIG, 0x7fffffff};
   for (int k = 0; k < S; ++k) {
-    const size_t o = (size_t)k * n0 + r;
+    const size_t o = base + (size_t)k * n0;
     merge(s, pb1[o], pb2[o], pi1[o]);
   }
   best[r] = s.b1;
@@ -403,24 +419,26 @@ __global__ void merge_splits_kernel(const float* __restrict__ pb1,
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success). `scratch`
-// holds 3 * splits * n0 32-bit words: the blocks' partial best, second and
-// argbest. `splits` is between 1 and 32 and at most the number of 128-row
-// train tiles.
+// Launch on `stream`; returns cudaGetLastError() (0 on success). The
+// inputs and outputs hold `lanes` problems back to back (lane-major).
+// `scratch` holds 3 * lanes * splits * n0 32-bit words: the blocks' partial
+// best, second and argbest. `splits` is between 1 and 32 and at most the
+// number of 128-row train tiles; `lanes` between 1 and 65535.
 extern "C" int match_top2_launch(const float* d0, const float* d1,
                                  const uint8_t* valid1, float* best,
                                  float* second, int* idx, void* scratch,
-                                 int n0, int n1, int d, int splits,
+                                 int n0, int n1, int d, int splits, int lanes,
                                  void* stream) {
-  if (n0 <= 0) return 0;
+  if (n0 <= 0 || lanes == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
   const int ttiles = (n1 + BN - 1) / BN;
   if (d < 1 || splits < 1 || splits > MAX_SPLITS ||
-      splits > (ttiles > 1 ? ttiles : 1))
+      splits > (ttiles > 1 ? ttiles : 1) || lanes < 0 || lanes > 65535)
     return (int)cudaErrorInvalidValue;
+  const size_t parts = (size_t)lanes * splits * n0;
   float* pb1 = static_cast<float*>(scratch);
-  float* pb2 = pb1 + (size_t)splits * n0;
-  int* pi1 = reinterpret_cast<int*>(pb2 + (size_t)splits * n0);
+  float* pb2 = pb1 + parts;
+  int* pi1 = reinterpret_cast<int*>(pb2 + parts);
 
   const int nchunks = (d + BK - 1) / BK;
   const int qslots = nchunks <= MAX_RESIDENT_CHUNKS ? nchunks : 2;
@@ -430,12 +448,13 @@ extern "C" int match_top2_launch(const float* d0, const float* d1,
   if (e != cudaSuccess) return (int)e;
   const int vec0 = (d % 4 == 0) && ((uintptr_t)d0 % 16 == 0);
   const int vec1 = (d % 4 == 0) && ((uintptr_t)d1 % 16 == 0);
-  const dim3 grid((n0 + BM - 1) / BM, splits);
+  const dim3 grid((n0 + BM - 1) / BM, splits, lanes);
   match_top2_kernel<<<grid, THREADS, smem, st>>>(d0, d1, valid1, pb1, pb2, pi1,
                                                  n0, n1, d, vec0, vec1);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  merge_splits_kernel<<<(n0 + 255) / 256, 256, 0, st>>>(pb1, pb2, pi1, best,
-                                                        second, idx, n0, splits);
+  const long long rows = (long long)n0 * lanes;
+  merge_splits_kernel<<<(unsigned)((rows + 255) / 256), 256, 0, st>>>(
+      pb1, pb2, pi1, best, second, idx, n0, splits, lanes);
   return (int)cudaGetLastError();
 }

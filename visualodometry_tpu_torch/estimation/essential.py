@@ -1,10 +1,12 @@
 """Vectorized essential-matrix RANSAC and cheirality pose recovery.
 
-Port of visualodometry_tpu/estimation/essential.py, five-point path
-(the eight-point alternative is not on the main path and raises). The
-RANSAC takes its minimal-sample indices explicitly, `idx` (H, 5). The
-manifold GN refit runs batched over the top-k candidates with its
-Jacobian written out; the fixed iteration counts are Python loops.
+Port of visualodometry_tpu/estimation/essential.py, both hypothesis
+generators: the five-point minimal solver (`cfg.essential_solver="5point"`,
+the default) and the eight-point least-squares one ("8point"). The RANSAC
+takes its minimal-sample indices explicitly, `idx` (H, 5) or (H, 8). The
+five-point path's manifold GN refit runs batched over the top-k candidates
+with its Jacobian written out; the eight-point path re-fits linearly on the
+winner's inliers. The fixed iteration counts are Python loops.
 
 Conventions match OpenCV: x1^T E x0 = 0 in normalized coordinates, and
 the recovered (R, t) maps frame0 camera coordinates to frame1.
@@ -42,6 +44,32 @@ def _W(E: torch.Tensor) -> torch.Tensor:
     """[[0, -1, 0], [1, 0, 0], [0, 0, 1]], built on E's device."""
     ez = torch.eye(3, dtype=E.dtype, device=E.device)[2]
     return so3_hat(ez) + torch.outer(ez, ez)
+
+
+def _eight_point_system(x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
+    """Rows of the epipolar constraint x1^T E x0 = 0.
+
+    x0, x1: (..., N, 2) normalized coords. Returns (..., N, 9) with E
+    flattened row-major.
+    """
+    a, b = x0[..., 0], x0[..., 1]
+    c, d = x1[..., 0], x1[..., 1]
+    one = torch.ones_like(a)
+    return torch.stack([c * a, c * b, c, d * a, d * b, d, a, b, one], dim=-1)
+
+
+def _solve_e_from_rows(A: torch.Tensor, w: torch.Tensor | None = None) -> torch.Tensor:
+    """Least-squares essential matrix from constraint rows A (..., N, 9),
+    optionally weighted by w (..., N); projected onto the essential manifold
+    (singular values 1, 1, 0). Returns (..., 3, 3)."""
+    if w is not None:
+        A = A * w[..., None]
+    AtA = torch.einsum("...ni,...nj->...ij", A, A)
+    e = smallest_eigvec(AtA)
+    E = e.reshape(e.shape[:-1] + (3, 3))
+    U, _, Vt = svd3(E)
+    s_proj = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
+    return (U * s_proj) @ Vt
 
 
 def _sampson_sq(E: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
@@ -146,19 +174,28 @@ def estimate_essential_ransac(
 ) -> EssentialResult:
     """Batched essential-matrix RANSAC over padded correspondences.
 
-    uv0, uv1: (N, 2) pixels; valid: (N,) live matches; idx: (H, 5)
-    minimal-sample indices for the five-point solver.
+    uv0, uv1: (N, 2) pixels; valid: (N,) live matches; idx: the minimal
+    samples, (H, 5) for `cfg.essential_solver="5point"` and (H, 8) for
+    "8point".
     """
-    if cfg.essential_solver != "5point":
-        raise NotImplementedError(
-            f"estimate_essential_ransac: essential_solver={cfg.essential_solver!r} "
-            "is not ported (five-point only)"
+    k = {"5point": 5, "8point": 8}.get(cfg.essential_solver)
+    if k is None:
+        raise ValueError(f"unknown essential_solver {cfg.essential_solver!r}")
+    if idx.dim() != 2 or idx.shape[1] != k:
+        raise ValueError(
+            f"estimate_essential_ransac: {cfg.essential_solver} wants samples "
+            f"(H, {k}), got {tuple(idx.shape)}"
         )
     x0 = pixels_to_normalized(uv0, K)
     x1 = pixels_to_normalized(uv1, K)
-    E_c, cand_ok = five_point_candidates(x0[idx], x1[idx])  # (H, 10, 3, 3)
-    E_h = E_c.reshape(-1, 3, 3)
-    hyp_ok = cand_ok.reshape(-1)
+    if k == 5:
+        E_c, cand_ok = five_point_candidates(x0[idx], x1[idx])  # (H, 10, 3, 3)
+        E_h = E_c.reshape(-1, 3, 3)
+        hyp_ok = cand_ok.reshape(-1)
+    else:
+        rows_all = _eight_point_system(x0, x1)  # (N, 9)
+        E_h = _solve_e_from_rows(rows_all[idx])  # (H, 3, 3)
+        hyp_ok = torch.ones(E_h.shape[0], dtype=torch.bool, device=E_h.device)
 
     f_mean = 0.5 * (K[0, 0] + K[1, 1])
     thresh = cfg.init_ransac_thresh / f_mean
@@ -169,8 +206,30 @@ def estimate_essential_ransac(
     counts = torch.sum(inlier_mat, dim=1)
     best = torch.argmax(counts)
 
-    # refine the top-k by consensus, polish each with four robust IRLS
-    # rounds, select by truncated-MSAC cost (see the JAX module)
+    if k == 5:
+        E = _refine_top_k(E_h, inlier_mat, counts, x0, x1, valid, thresh_sq)
+    else:
+        # the eight-point path re-fits linearly on the winner's inliers
+        E = _solve_e_from_rows(rows_all, take(inlier_mat, best).to(rows_all.dtype))
+    final_d2 = _sampson_sq(E, x0, x1)
+    final_inliers = (final_d2 < thresh_sq) & valid
+    num = torch.sum(final_inliers).to(torch.int32)
+
+    # safety fallback to the raw winner, judged by truncated-MSAC cost
+    cost_ref = torch.sum(torch.clamp(final_d2, max=thresh_sq) * valid)
+    d2_raw = _sampson_sq(take(E_h, best), x0, x1)
+    cost_raw = torch.sum(torch.clamp(d2_raw, max=thresh_sq) * valid)
+    use_refit = cost_ref <= cost_raw
+    E = torch.where(use_refit, E, take(E_h, best))
+    final_inliers = torch.where(use_refit, final_inliers, take(inlier_mat, best))
+    num = torch.where(use_refit, num, take(counts, best).to(torch.int32))
+    return EssentialResult(E=E, inliers=final_inliers, num_inliers=num, ok=num >= 8)
+
+
+def _refine_top_k(E_h, inlier_mat, counts, x0, x1, valid, thresh_sq):
+    """The five-point path's refit: the top-k hypotheses by consensus, each
+    polished with four robust IRLS rounds on the essential manifold, the one
+    of least truncated-MSAC cost (see the JAX module)."""
     k_top = min(16, E_h.shape[0])
     top_idx = _top_k_stable(counts, k_top)
     E_ref = E_h[top_idx]
@@ -189,20 +248,7 @@ def estimate_essential_ransac(
         E_ref = refine_essential_manifold(E_ref, x0, x1, w_ref)
     d2_ref = _sampson_sq(E_ref, x0, x1)
     cost = torch.sum(torch.clamp(d2_ref, max=thresh_sq) * valid[None, :], dim=1)
-    E = take(E_ref, torch.argmin(cost))
-    final_d2 = _sampson_sq(E, x0, x1)
-    final_inliers = (final_d2 < thresh_sq) & valid
-    num = torch.sum(final_inliers).to(torch.int32)
-
-    # safety fallback to the raw winner, judged by truncated-MSAC cost
-    cost_ref = torch.sum(torch.clamp(final_d2, max=thresh_sq) * valid)
-    d2_raw = _sampson_sq(take(E_h, best), x0, x1)
-    cost_raw = torch.sum(torch.clamp(d2_raw, max=thresh_sq) * valid)
-    use_refit = cost_ref <= cost_raw
-    E = torch.where(use_refit, E, take(E_h, best))
-    final_inliers = torch.where(use_refit, final_inliers, take(inlier_mat, best))
-    num = torch.where(use_refit, num, take(counts, best).to(torch.int32))
-    return EssentialResult(E=E, inliers=final_inliers, num_inliers=num, ok=num >= 8)
+    return take(E_ref, torch.argmin(cost))
 
 
 def _top_k_stable(x: torch.Tensor, k: int) -> torch.Tensor:
