@@ -101,7 +101,17 @@ Phases (any failed check raises, so the script exits non-zero):
      pass and read after (K1 x 32 carrying B lanes each, K2 x 96 B, K3 x 0),
      every lane at the main path's limits, lane 0 at B = 4 against the main
      path, at most 2 host syncs a tracking frame, and a second pass's
-     aggregate frames/s and device busy share (no limit).
+     aggregate frames/s and device busy share (no limit);
+ 23. the CLI (after phase 6), `visualodometry_tpu_torch.cli.main` in this
+     process on phase 6's 32 frames written as a KITTI tree (PNG by a stdlib
+     writer): the native decoder built from the checkout, `decode_batch` on
+     every frame bit-equal to the decoder's arithmetic (uint8 x float32(1 /
+     255)) and on the native route, its host ms a chunk; the CLI's resolved
+     config equal to the main path's; chunked (`--chunk 8`): 32 frames, K1 x
+     32, K2 x 96, K3 x 0, ATE <= CLI_ATE_LIMIT; per frame with `--ba
+     --smooth` on 16 frames: K1 x 16, K2 x 48, a finite ATE; `--tracker klt`:
+     32 frames, K2 x 3 x 32 + 6 x 31 all on the TMA route, K1 and K3 x 0,
+     ATE <= CLI_KLT_ATE_LIMIT.
 K1 is also held against its plain version at the SuperPoint path's shape,
 2048 x 2048 x 256, and timed there beside `cdist` + `topk`, on a log line of
 its own (phase 2). The KITTI-gates phases hold the largest segment ATE at
@@ -114,11 +124,19 @@ device, and when the package is not beside it.
 
 from __future__ import annotations
 
+import binascii
+import contextlib
+import dataclasses
+import io
 import json
 import os
+import shutil
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 import numpy as np
 
@@ -280,6 +298,20 @@ DIST_TIMEOUT_S = 300
 # HBM3 lands within 2e-6 of its ba_solve (this script's reading, PERF.md),
 # and a card's arithmetic repeats. So if only that check fails on another card or library, the
 # exact one says whether the distribution is at fault.
+
+# the CLI phase: the main path's 32 frames written as a KITTI tree, then
+# `python -m visualodometry_tpu_torch.cli` in its three modes, in-process.
+# Limits on the CLI's `ate_xz_sim3` (all frames, x and z, rounded to 1e-3 m).
+# The JAX CLI on the CPU over the same tree (scripts/cli_jax_cpu.py, the
+# float32 `jnp` matcher in place of the Pallas one): chunked 0.121 m; the
+# limit is 4x it, as the main path's is 4x its reference. KLT: 0.535, 0.583,
+# 0.580, 0.684 m at --set seed=0..3; the limit is the worst, rounded up (the
+# KLT path's ATE is set by the RANSAC draws: PERF.md, section 6).
+CLI_SEQUENCE = "05"
+CLI_JAX_CPU_ATE = 0.121
+CLI_ATE_LIMIT = 4.0 * CLI_JAX_CPU_ATE
+CLI_KLT_ATE_LIMIT = 0.70
+CLI_ENGINE_FRAMES = 16
 
 
 def log(*args):
@@ -755,6 +787,158 @@ def phase_main_path(torch, dev, card):
     log(f"main path second pass: {N_FRAMES / dt:.3f} frames/s ({dt:.3f} s for "
         f"{N_FRAMES} frames) on {card}")
     return launches, scene, u8, dict(resets=resets, keyframes=keyframes)
+
+
+def write_png_gray(path: str, img: np.ndarray) -> None:
+    """8-bit grayscale PNG, filter 0 on every row (stdlib only: the card's
+    machine may have no PIL)."""
+    h, w = img.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        crc = binascii.crc32(tag + data) & 0xFFFFFFFF
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", crc)
+
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.astype(np.uint8)], axis=1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
+        f.write(chunk(b"IEND", b""))
+
+
+def write_kitti_tree(root: str, u8: np.ndarray, gt_positions: np.ndarray,
+                     sequence: str = CLI_SEQUENCE) -> list[str]:
+    """`u8` as kitti/<sequence>/image_0/%06d.png under `root`, and
+    kitti/poses/<sequence>.txt with x, z of `gt_positions` in columns 3 and
+    11 (the loader's columns). Returns the image paths."""
+    img_dir = os.path.join(root, "kitti", sequence, "image_0")
+    pose_dir = os.path.join(root, "kitti", "poses")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(pose_dir, exist_ok=True)
+    paths = []
+    for i, img in enumerate(u8):
+        paths.append(os.path.join(img_dir, f"{i:06d}.png"))
+        write_png_gray(paths[-1], img)
+    poses = np.zeros((len(gt_positions), 12))
+    poses[:, 3] = gt_positions[:, 0]
+    poses[:, 11] = gt_positions[:, 2]
+    np.savetxt(os.path.join(pose_dir, f"{sequence}.txt"), poses)
+    return paths
+
+
+def cli_overrides() -> list[str]:
+    """The CLI's --set list that turns get_config("kitti", "sift") into
+    BENCH_CFG's config: one pair for each field that differs."""
+    from visualodometry_tpu_torch import config_from_dict, get_config
+
+    base, want = get_config("kitti", extractor="sift"), config_from_dict(BENCH_CFG)
+    pairs = []
+    for f in dataclasses.fields(want):
+        if getattr(want, f.name) != getattr(base, f.name):
+            pairs += ["--set", f"{f.name}={getattr(want, f.name)}"]
+    return pairs
+
+
+def run_cli(argv: list[str]) -> dict:
+    """`visualodometry_tpu_torch.cli.main(argv)` in this process with its
+    stdout captured; checks that it exited 0 and returns its last line's
+    JSON."""
+    from visualodometry_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    text = buf.getvalue()
+    check(rc == 0, f"the CLI exited {rc} for {argv}:\n{text}")
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def phase_cli(torch, dev, card, scene, u8, tmp_root):
+    """The CLI in its three modes on the main path's frames written as a
+    KITTI tree: native decode, the chunked runner, the engine with BA and
+    smoothing, KLT."""
+    from visualodometry_tpu_torch import cli, config_from_dict
+    from visualodometry_tpu_torch.data import native_decode
+
+    tmp = tempfile.mkdtemp(prefix="vo_cli_", dir=tmp_root)
+    try:
+        paths = write_kitti_tree(tmp, u8, scene.gt_positions)
+        t0 = time.perf_counter()
+        native_decode.get_lib()
+        log(f"CLI: native decoder built in {time.perf_counter() - t0:.1f} s")
+
+        # decode: the whole tree in chunks, bit-equal to the decoder's own
+        # arithmetic (uint8 x float32(1/255)), every frame on the native route
+        W, H = native_decode.image_info(paths[0])
+        check((W, H) == IMG_SIZE, f"decoded size {(W, H)}")
+        native_decode.routes.update(native=0, pil=0)
+        times, decoded = [], []
+        for i in range(0, N_FRAMES, CHUNK):
+            t0 = time.perf_counter()
+            frames, n_ok = native_decode.decode_batch(paths[i : i + CHUNK], W, H)
+            times.append(time.perf_counter() - t0)
+            check(n_ok == CHUNK, f"decode_batch decoded {n_ok} of {CHUNK}")
+            decoded.append(frames)
+        routes = dict(native_decode.routes)
+        decoded = np.concatenate(decoded)
+        want = u8.astype(np.float32) * np.float32(1.0 / 255.0)
+        by_division = u8.astype(np.float32) / np.float32(255.0)
+        back = (np.clip(decoded, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+        t0 = time.perf_counter()
+        native_decode.decode_batch(paths[:CHUNK], W, H, threads=1)
+        one_thread_ms = (time.perf_counter() - t0) * 1e3 / CHUNK
+        ms = float(np.median(times)) * 1e3
+        pixel_mb = CHUNK * W * H / 1e6
+        file_mb = sum(os.path.getsize(p) for p in paths[:CHUNK]) / 1e6
+        log(f"CLI decode: {N_FRAMES} PNG frames {W}x{H}, routes {routes}, bit-equal "
+            f"{bool(np.array_equal(decoded, want))}, largest difference from u8 / 255 by "
+            f"division {float(np.abs(decoded - by_division).max()):.3e}, uint8 round trip "
+            f"exact {bool(np.array_equal(back, u8))}; host decode {ms:.3f} ms a chunk of "
+            f"{CHUNK} (median of {len(times)}; {pixel_mb / ms * 1e3:.1f} MB/s of pixels, "
+            f"{file_mb / ms * 1e3:.1f} MB/s of PNG), one thread {one_thread_ms:.3f} ms a "
+            f"frame, {os.cpu_count()} host cores, beside {card}")
+        check(np.array_equal(decoded, want), "native decode is not the decoder's arithmetic")
+        check(np.array_equal(back, u8), "native decode does not round-trip to the frames")
+        check(routes == {"native": N_FRAMES, "pil": 0}, f"decode routes {routes}")
+
+        base = ["--dataset", "kitti", "--path", tmp, "--sequence", CLI_SEQUENCE,
+                *cli_overrides()]
+        resolved = cli.resolve_config(cli.build_parser().parse_args(base))
+        check(resolved == config_from_dict(BENCH_CFG),
+              "the CLI's resolved config is not the main path's")
+        modes = (
+            ("chunked", ["--chunk", str(CHUNK)], N_FRAMES,
+             {"match_top2": N_FRAMES, "extract_patches": 3 * N_FRAMES, "blur_stack": 0},
+             CLI_ATE_LIMIT),
+            ("per-frame with BA", ["--max-frames", str(CLI_ENGINE_FRAMES), "--ba", "--smooth"],
+             CLI_ENGINE_FRAMES,
+             {"match_top2": CLI_ENGINE_FRAMES, "extract_patches": 3 * CLI_ENGINE_FRAMES,
+              "blur_stack": 0}, None),
+            # 3 SIFT launches a frame and 6 a tracking frame: every frame
+            # after the first, with no reset (phase_klt holds 0 on them)
+            ("KLT", ["--tracker", "klt"], N_FRAMES,
+             {"match_top2": 0, "extract_patches": 3 * N_FRAMES + 6 * (N_FRAMES - 1),
+              "blur_stack": 0}, CLI_KLT_ATE_LIMIT),
+        )
+        for name, extra, frames, launches_want, limit in modes:
+            zero_launches()
+            res = run_cli(base + extra)
+            torch.cuda.synchronize()
+            launches, k2_routes = read_launches(), read_routes()
+            ate = res.get("ate_xz_sim3")
+            log(f"CLI {name}: {res} (fps: host clock over decode, upload and "
+                f"the run, the runner's build included), launches {launches}, K2 routes "
+                f"{k2_routes}" + (f", ATE limit {limit} m" if limit is not None else "")
+                + f"; on {card}")
+            check(res["frames"] == frames, f"CLI {name} ran {res['frames']} frames")
+            check(ate is not None and np.isfinite(ate), f"CLI {name} reported no ATE")
+            if limit is not None:
+                check(ate <= limit, f"CLI {name}: ATE {ate} m > {limit} m")
+            check(launches == launches_want, f"CLI {name} launched {launches}, not "
+                  f"{launches_want}")
+            check(k2_routes["scalar"] == 0, f"CLI {name}: a K2 launch took the scalar loop")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def gates_config():
@@ -1693,6 +1877,7 @@ def main() -> int:
                phase_blur(torch, dev, smi)]
     kernels[0]["lanes"] = phase_match_lanes(torch, dev, smi)
     launches, scene, u8, main_summary = phase_main_path(torch, dev, smi)
+    phase_cli(torch, dev, smi, scene, u8, os.environ.get("TMPDIR", "/tmp"))
     phase_match_real(torch, dev, u8)
     phase_engine(torch, dev, scene, u8, os.environ.get("TMPDIR", "/tmp"))
     phase_learned(torch, dev, smi, scene, u8, "superpoint")

@@ -282,14 +282,16 @@ def test_engine_resumes_from_checkpoint_bit_for_bit(ref, tmp_path):
 def test_engine_refuses_what_is_not_ported(ref):
     """BA and pose-graph smoothing are ported (tests/test_torch_ba_engine.py
     holds them against JAX): `enable_ba` and `positions(smoothed=True)` no
-    longer raise. A viz sink and an unknown matcher still do."""
+    longer raise; nor does a viz sink, which the engine keeps and calls
+    once a frame (tests/test_torch_viz.py). An unknown matcher still
+    raises."""
     tc, K = ref["tc"], ref["scene"].K
     engine = VOEngine(K, tc, enable_ba=True, device="cpu")
     assert engine.positions(smoothed=True).shape == (0, 3)
     with pytest.raises(ValueError, match="matcher_type"):
         VOEngine(K, tc.replace(matcher_type="lightglue"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Rerun"):
-        VOEngine(K, tc, viz=object(), device="cpu")
+    sink = object()
+    assert VOEngine(K, tc, viz=sink, device="cpu").viz is sink
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(ref):

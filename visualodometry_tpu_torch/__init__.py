@@ -15,7 +15,12 @@ The learned models read the JAX package's bundled weight files
 (`models/weights.py`, `models/convert.py`). KLT mode (`ops/klt.py`,
 `core/klt_step.py`) tracks candidate keypoints by pyramidal Lucas-Kanade;
 bundle adjustment (`ba/`) refines keyframe windows in the chunk runner and
-the engine, and smooths the keyframe chain as a pose graph.
+the engine, and smooths the keyframe chain as a pose graph. The command
+line (`python -m visualodometry_tpu_torch.cli`) runs a dataset tree on
+disk (`data/loaders.py`) through the native C++ decoder
+(`data/native_decode.py`, built with g++ at first use) and the prefetching
+loader, per frame, in chunks or in KLT mode; `viz/rerun_sink.py` is its
+optional viewer.
 
 The three kernels (top-2 matcher, patch gather, which KLT mode also
 runs, and the opt-in blur stack of the pyramid) are CUDA C++ for sm_90a

@@ -5,9 +5,9 @@ the VO step and the BA solve run on the device; this class owns the thin
 host state around them: the trajectory log (cleared on a reset, as the
 reference does), the keyframe pose log, the sliding keyframe window for
 BA and its refined edges, and checkpointing of the state together with
-the step's RANSAC generator. Both frontends (SIFT, SuperPoint with 256-D
-descriptors) and both matchers are ported; a `viz` sink is not yet and
-raises.
+the step's RANSAC generator, and the optional visualization sink. Both
+frontends (SIFT, SuperPoint with 256-D descriptors) and both matchers are
+ported.
 """
 
 from __future__ import annotations
@@ -53,7 +53,7 @@ class VOEngine:
     K: np.ndarray
     cfg: VOConfig
     enable_ba: bool = False
-    viz: Any = None
+    viz: Any = None  # optional sink with .log_frame(engine, out, img, feats)
     desc_dim: int = 128
     device: Any = None
 
@@ -66,8 +66,6 @@ class VOEngine:
     _ba_edges: dict = field(init=False, default_factory=dict)  # (i, j) -> Z
 
     def __post_init__(self):
-        if self.viz is not None:
-            raise NotImplementedError("VOEngine: viz waits for the Rerun-sink slice")
         self.K = np.asarray(self.K, np.float32)
         self.device = resolve_device(self.device)
         if self.cfg.extractor_type == "sift":
@@ -116,6 +114,9 @@ class VOEngine:
             if self.enable_ba and len(self._kf_window) == self.cfg.ba_window:
                 self._run_window_ba()
         self._traj_kf.append(len(self._kf_log) - 1)
+
+        if self.viz is not None:
+            self.viz.log_frame(self, out_host, img, feats)
         self.frame_id += 1
         return out_host
 

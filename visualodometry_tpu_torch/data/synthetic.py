@@ -2,9 +2,9 @@
 
 The port's own copy of the parts of visualodometry_tpu/data/synthetic.py
 that render the bench fixture: `make_scene` (a KITTI-like forward drive)
-and `render_textured_image` with the value-noise texture (a ray-cast
-corridor: ground plane and two side walls). Same code, same seeds, so the
-frames are the same as the JAX package's. Also the dot renderer
+and `render_textured_image` (a ray-cast corridor: ground plane and two
+side walls) with the value-noise or the photo texture. Same code, same
+seeds, so the frames are the same as the JAX package's. Also the dot renderer
 `render_image` (the KLT tests' frames), `render_features` (projected
 landmarks as `Features`) and `gt_correspondence`. Also its long fixtures
 (`make_marathon_fixture`, `make_long_corridor_fixture`: S-curves and
@@ -13,7 +13,9 @@ blackout windows that force resets) and `segment_ate`, their metric.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 
@@ -303,6 +305,73 @@ def _value_noise(u: np.ndarray, v: np.ndarray, seed: int) -> np.ndarray:
     return out / total
 
 
+@functools.lru_cache(maxsize=8)
+def _photo_mosaic(seed: int = 0, tiles: int = 3):
+    """Real-photograph texture mosaic (grayscale [0, 1], read-only), or None.
+
+    Source: matplotlib's bundled sample photograph (the public-domain
+    U.S. Navy portrait of Grace Hopper), read with PIL; None when either
+    is missing. Square-cropped and tiled with seeded per-tile flips and
+    rotations so lattice periodicity doesn't plant exact-repeat
+    correspondences.
+    """
+    try:
+        import matplotlib
+        from PIL import Image
+    except ImportError:
+        return None
+    p = Path(matplotlib.get_data_path()) / "sample_data" / "grace_hopper.jpg"
+    try:
+        with Image.open(p) as src:
+            im = np.asarray(src.convert("L"), np.float32) / 255.0
+    except OSError:
+        return None
+    s = min(im.shape)
+    im = im[:s, :s]
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(tiles):
+        row = []
+        for _ in range(tiles):
+            t = im
+            if rng.random() < 0.5:
+                t = t[:, ::-1]
+            if rng.random() < 0.5:
+                t = t[::-1, :]
+            t = np.rot90(t, k=int(rng.integers(4)))
+            row.append(t)
+        rows.append(np.concatenate(row, 1))
+    mosaic = np.ascontiguousarray(np.concatenate(rows, 0))
+    mosaic.setflags(write=False)
+    return mosaic
+
+
+def _photo_texture(u: np.ndarray, v: np.ndarray, seed: int, scale: float = 32.0) -> np.ndarray:
+    """Bilinear-sample the photo mosaic at world coords (wrap-around).
+
+    `scale` = mosaic pixels per world unit. Value noise when the photo
+    is unavailable.
+    """
+    m = _photo_mosaic(seed % 7)
+    if m is None:
+        return _value_noise(u, v, seed)
+    H, W = m.shape
+    x = (u * scale) % W  # numpy % maps negatives into [0, W)
+    y = (v * scale) % H
+    x0 = np.floor(x).astype(int) % W
+    y0 = np.floor(y).astype(int) % H
+    x1 = (x0 + 1) % W
+    y1 = (y0 + 1) % H
+    fx = (x - np.floor(x)).astype(np.float32)
+    fy = (y - np.floor(y)).astype(np.float32)
+    return (
+        m[y0, x0] * (1 - fx) * (1 - fy)
+        + m[y0, x1] * fx * (1 - fy)
+        + m[y1, x0] * (1 - fx) * fy
+        + m[y1, x1] * fx * fy
+    )
+
+
 def render_textured_image(
     scene: SyntheticScene,
     frame: int,
@@ -313,13 +382,14 @@ def render_textured_image(
 ):
     """Ray-cast a textured corridor world (ground plane + two side walls).
 
-    Multi-octave value noise on real 3D surfaces under true perspective.
-    Returns (H, W) float32 in [0, 1]; with `with_depth`, also the (H, W)
-    float32 depth (camera z; inf for sky). Only `texture="noise"` is
-    ported.
+    `texture` "noise" is multi-octave value noise on real 3D surfaces
+    under true perspective; "photo" samples a photograph mosaic there
+    (value noise when the photo is unavailable). Returns (H, W) float32 in
+    [0, 1]; with `with_depth`, also the (H, W) float32 depth (camera z;
+    inf for sky).
     """
-    if texture != "noise":
-        raise NotImplementedError("render_textured_image: only texture='noise'")
+    if texture not in ("noise", "photo"):
+        raise ValueError(f"render_textured_image: unknown texture {texture!r}")
     W, H = scene.image_size
     T_wc = scene.poses_T_wc[frame]
     R_wc = T_wc[:3, :3]
@@ -337,11 +407,13 @@ def render_textured_image(
     depth = np.full((H, W), np.inf, np.float32)
     best_t = np.full((H, W), np.inf, np.float32)
 
+    tex_fn = _photo_texture if texture == "photo" else _value_noise
+
     def shade(t, valid, texture_uv, seed, shade_scale):
         hit = valid & (t > 0.5) & (t < best_t)
         if not hit.any():
             return
-        tex = _value_noise(texture_uv[0][hit], texture_uv[1][hit], seed)
+        tex = tex_fn(texture_uv[0][hit], texture_uv[1][hit], seed)
         img[hit] = (0.15 + 0.8 * tex) * shade_scale
         best_t[hit] = t[hit]
         depth[hit] = (t * d_cam[..., 2])[hit]
