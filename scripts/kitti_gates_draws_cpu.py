@@ -16,6 +16,13 @@ in every combination of:
   `jax.random.key(cfg.seed)`, given to the step's `sampler=`);
 - seeds: cfg.seed in `--seeds` (0-3 by default).
 
+`--steps JAX` also runs the JAX package's own step (`jax.jit(make_step_fn)`,
+its draws from `VOState.rng_key`) frame by frame over the same features:
+the JAX reference for exactly the inputs the port's step gets, where the
+JAX pipeline of scripts/kitti_gates_jax_cpu.py extracts inside its fused
+chunk program. `--features` and `--draws` pick a subset of the
+combinations.
+
 The matcher is the port's `match_descriptors` on CPU tensors, its float32
 plain version, as the JAX run's `jnp` matcher is. The JAX package's own runs
 of the path on the CPU (scripts/kitti_gates_jax_cpu.py --seed N) give the
@@ -25,6 +32,7 @@ window [120, 183), keyframes, tracking at the end, the largest segment ATE.
 Tracking outcomes only; the times are CPU times.
 
     JAX_PLATFORMS=cpu python scripts/kitti_gates_draws_cpu.py [--seeds 0 1 2 3] [--frames 192]
+        [--steps port JAX] [--features port JAX] [--draws port JAX]
 """
 
 from __future__ import annotations
@@ -46,11 +54,87 @@ EXPLAINED = 60
 CHUNK = 8
 
 
+def report(run: dict, gt: np.ndarray, est, resets, inited, keyframes: int, t0: float) -> None:
+    """Print one JSON line of a run's tracking outcome; `run` names it."""
+    from visualodometry_tpu_torch.data.synthetic import segment_ate
+
+    n = len(est)
+    explained = np.zeros(n, bool)
+    explained[BLANK[0] : min(BLANK[1] + EXPLAINED, n)] = True
+    segs = segment_ate(est, gt[:n], resets)
+    reset_frames = np.flatnonzero(resets)
+    print(json.dumps({
+        **run, "frames": n,
+        "resets": int(resets.sum()), "reset_frames": reset_frames.tolist(),
+        "resets_outside_window": int((~explained[reset_frames]).sum()),
+        "keyframes": keyframes, "tracking_at_end": bool(inited[-1]),
+        "segment_ate_max_m": max((a for _, _, a in segs), default=None),
+        "segments": segs, "elapsed_s": round(time.perf_counter() - t0),
+    }), flush=True)
+
+
+def run_jax_step(jcfg, K, feats):
+    """The JAX package's step over `feats` (port `Features` of CPU tensors),
+    its draws from `VOState.rng_key` seeded with jcfg.seed: (positions,
+    resets, initialized, keyframes)."""
+    import jax
+    import jax.numpy as jnp
+
+    from visualodometry_tpu.core import init_state
+    from visualodometry_tpu.core.step import make_step_fn
+    from visualodometry_tpu.frontend.interface import Features
+
+    step = jax.jit(make_step_fn(jcfg, np.asarray(K, np.float32)))
+    state = init_state(jcfg, desc_dim=128)
+    est, resets, inited, keyframes = [], [], [], 0
+    for f in feats:
+        state, out = step(state, Features(*(jnp.asarray(x.numpy()) for x in f)))
+        est.append(np.asarray(out.T_wc)[:3, 3])
+        resets.append(bool(out.did_reset))
+        inited.append(bool(out.initialized))
+        keyframes += bool(out.is_keyframe)
+    return np.stack(est), np.array(resets), np.array(inited), keyframes
+
+
+def run_port_step(cfg, K, feats, draws: str, seed: int):
+    """The port's step over `feats` with its own draws or the JAX engine's
+    key chain at `seed`: (positions, resets, initialized, keyframes)."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from visualodometry_tpu.estimation.ransac import sample_valid_indices as jsample
+    from visualodometry_tpu_torch.core import init_state, make_step_fn
+
+    keys = {"key": jax.random.key(seed)}
+
+    def sampler(valid, num_hypotheses, sample_size):
+        k = keys["ess"] if sample_size in (5, 8) else keys["pnp"]
+        idx = jsample(k, jnp.asarray(valid.numpy()), num_hypotheses, sample_size)
+        return torch.as_tensor(np.array(idx)).long()
+
+    step = make_step_fn(cfg, K, device="cpu", sampler=sampler if draws == "JAX" else None)
+    state = init_state(cfg, desc_dim=128, device="cpu")
+    outs = []
+    with torch.no_grad():
+        for f in feats:
+            keys["key"], keys["ess"], keys["pnp"] = jax.random.split(keys["key"], 3)
+            state, out = step(state, f)
+            outs.append(out)
+    est = torch.stack([o.T_wc for o in outs])[:, :3, 3].numpy()
+    return (est, np.array([bool(o.did_reset) for o in outs]),
+            np.array([bool(o.initialized) for o in outs]),
+            int(sum(bool(o.is_keyframe) for o in outs)))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=192)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3])
     ap.add_argument("--threads", type=int, default=4)
+    ap.add_argument("--steps", nargs="+", default=["port"], choices=["port", "JAX"])
+    ap.add_argument("--features", nargs="+", default=["port", "JAX"], choices=["port", "JAX"])
+    ap.add_argument("--draws", nargs="+", default=["port", "JAX"], choices=["port", "JAX"])
     args = ap.parse_args()
 
     import jax
@@ -58,11 +142,9 @@ def main() -> int:
     import torch
 
     from visualodometry_tpu.config import get_config as jget_config
-    from visualodometry_tpu.estimation.ransac import sample_valid_indices as jsample
     from visualodometry_tpu.frontend.sift import make_batched_extract_fn as jextract_fn
     from visualodometry_tpu_torch import config_from_dict
-    from visualodometry_tpu_torch.core import init_state, make_step_fn
-    from visualodometry_tpu_torch.data.synthetic import make_marathon_fixture, segment_ate
+    from visualodometry_tpu_torch.data.synthetic import make_marathon_fixture
     from visualodometry_tpu_torch.frontend.interface import Features
     from visualodometry_tpu_torch.frontend.sift import make_batched_extract_fn
 
@@ -78,57 +160,32 @@ def main() -> int:
 
     t0 = time.perf_counter()
     features = {}
-    extract = make_batched_extract_fn(cfg0, device="cpu")
-    with torch.no_grad():
-        features["port"] = [f for i in range(0, n, CHUNK)
-                            for f in extract(torch.as_tensor(u8[i : i + CHUNK]))]
-    print(f"port features: {time.perf_counter() - t0:.0f} s", file=sys.stderr, flush=True)
-    vex = jax.jit(jextract_fn(jcfg))
-    jf = []
-    for i in range(0, n, CHUNK):
-        f = jax.tree.map(np.asarray, vex(jnp.asarray(u8[i : i + CHUNK])))
-        jf += [Features(*(torch.as_tensor(np.array(x[j])) for x in f))
-               for j in range(len(f.kps))]
-    features["JAX"] = jf
-    print(f"JAX features: {time.perf_counter() - t0:.0f} s", file=sys.stderr, flush=True)
+    if "port" in args.features:
+        extract = make_batched_extract_fn(cfg0, device="cpu")
+        with torch.no_grad():
+            features["port"] = [f for i in range(0, n, CHUNK)
+                                for f in extract(torch.as_tensor(u8[i : i + CHUNK]))]
+        print(f"port features: {time.perf_counter() - t0:.0f} s", file=sys.stderr, flush=True)
+    if "JAX" in args.features:
+        vex = jax.jit(jextract_fn(jcfg))
+        jf = []
+        for i in range(0, n, CHUNK):
+            f = jax.tree.map(np.asarray, vex(jnp.asarray(u8[i : i + CHUNK])))
+            jf += [Features(*(torch.as_tensor(np.array(x[j])) for x in f))
+                   for j in range(len(f.kps))]
+        features["JAX"] = jf
+        print(f"JAX features: {time.perf_counter() - t0:.0f} s", file=sys.stderr, flush=True)
 
-    explained = np.zeros(n, bool)
-    explained[BLANK[0] : min(BLANK[1] + EXPLAINED, n)] = True
     for seed in args.seeds:
-        cfg = cfg0.replace(seed=seed)
         for feat_name, feats in features.items():
-            for draws in ("port", "JAX"):
-                keys = {"key": jax.random.key(seed)}
-
-                def sampler(valid, num_hypotheses, sample_size):
-                    k = keys["ess"] if sample_size in (5, 8) else keys["pnp"]
-                    idx = jsample(k, jnp.asarray(valid.numpy()), num_hypotheses, sample_size)
-                    return torch.as_tensor(np.array(idx)).long()
-
-                step = make_step_fn(cfg, K, device="cpu",
-                                    sampler=sampler if draws == "JAX" else None)
-                state = init_state(cfg, desc_dim=128, device="cpu")
-                outs = []
-                with torch.no_grad():
-                    for f in feats:
-                        keys["key"], keys["ess"], keys["pnp"] = jax.random.split(keys["key"], 3)
-                        state, out = step(state, f)
-                        outs.append(out)
-                est = torch.stack([o.T_wc for o in outs])[:, :3, 3].numpy()
-                resets = np.array([bool(o.did_reset) for o in outs])
-                inited = np.array([bool(o.initialized) for o in outs])
-                segs = segment_ate(est, gt, resets)
-                reset_frames = np.flatnonzero(resets)
-                print(json.dumps({
-                    "seed": seed, "features": feat_name, "draws": draws, "frames": n,
-                    "resets": int(resets.sum()), "reset_frames": reset_frames.tolist(),
-                    "resets_outside_window": int((~explained[reset_frames]).sum()),
-                    "keyframes": int(sum(bool(o.is_keyframe) for o in outs)),
-                    "tracking_at_end": bool(inited[-1]),
-                    "segment_ate_max_m": max((a for _, _, a in segs), default=None),
-                    "segments": segs,
-                    "elapsed_s": round(time.perf_counter() - t0),
-                }), flush=True)
+            if "JAX" in args.steps:
+                run = {"seed": seed, "step": "JAX", "features": feat_name, "draws": "JAX"}
+                report(run, gt, *run_jax_step(jcfg.replace(seed=seed), K, feats), t0)
+            if "port" not in args.steps:
+                continue
+            for draws in args.draws:
+                run = {"seed": seed, "step": "port", "features": feat_name, "draws": draws}
+                report(run, gt, *run_port_step(cfg0.replace(seed=seed), K, feats, draws, seed), t0)
     return 0
 
 

@@ -1,11 +1,18 @@
-"""Worker processes for tests/test_torch_distributed.py.
+"""Worker processes for tests/test_torch_distributed.py and
+tests/test_torch_train_dp.py.
 
 A module of its own, without JAX, so that each spawned process imports
-only torch and the port. Every worker brings the runtime up on the CPU over
+only torch, the port and chip_smoke.py (which imports neither JAX nor
+torch at its top). Every worker brings the runtime up on the CPU over
 gloo, does its part, puts its result on the queue and tears down.
 """
 
+import os
+import sys
 import traceback
+
+# chip_smoke.py, at the root of the checkout, holds the data-parallel rank body
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _run(fn, rank, world, port, queue, *args):
@@ -56,3 +63,20 @@ def runtime_worker(rank, world, port, queue, batch):
                     lanes=int(states.frame_id.shape[0]))
 
     _run(work, rank, world, port, queue, batch)
+
+
+def train_dp_worker(rank, world, port, queue, state, arrays):
+    """One rank of the data-parallel SuperPoint step: chip_smoke.py's rank
+    body (its shard's gradient, then the step over the mesh's "seq" axis)
+    on the CPU, with the rank's "seq" coordinate."""
+    def work(spec, state, arrays):
+        import torch
+
+        import chip_smoke
+        from visualodometry_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(num_seq=world, device="cpu")
+        res = chip_smoke._dp_step(torch, torch.device("cpu"), state, arrays, mesh)
+        return dict(res, seq=mesh.coord("seq"))
+
+    _run(work, rank, world, port, queue, state, arrays)

@@ -2,7 +2,7 @@
 optional host libraries, at import time.
 
 In a fresh interpreter, a `sys.meta_path` finder refuses and records jax,
-jaxlib, flax, the JAX package `visualodometry_tpu` (not the port), PIL,
+jaxlib, flax, optax, the JAX package `visualodometry_tpu` (not the port), PIL,
 cv2, matplotlib and rerun; the interpreter then imports every module of
 `visualodometry_tpu_torch` (walked with pkgutil) and `chip_smoke`. Every
 import must succeed and none of those names may have been asked for. The
@@ -20,7 +20,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CHILD = r"""
 import importlib, importlib.abc, json, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "visualodometry_tpu", "PIL", "cv2",
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "visualodometry_tpu", "PIL", "cv2",
            "matplotlib", "rerun")
 asked = []
 
@@ -65,6 +65,29 @@ def test_port_imports_nothing_of_jax_or_the_optional_libraries():
     # the modules of this slice are among those walked
     for name in ("cli", "data.loaders", "data.native_decode", "data.prefetch",
                  "viz.rerun_sink", "eval.reference_cv2", "utils.calibrate_camera",
-                 "utils.video2frame", "utils.profiling"):
+                 "utils.video2frame", "utils.profiling", "models.optim",
+                 "models.train_superpoint", "models.train_superpoint_textured",
+                 "models.vo_distill", "models.train_superpoint_dense",
+                 "models.train_matcher", "models.matcher_data"):
         assert f"visualodometry_tpu_torch.{name}" in imported
     assert "chip_smoke" in imported
+
+
+def test_port_training_scripts_import_nothing_of_jax():
+    """The port's training scripts import inside `main` (they need CUDA to
+    run), so their every import statement, at any depth, is read instead:
+    none names jax, flax, optax or the JAX package."""
+    import ast
+    import glob
+
+    scripts = sorted(glob.glob(os.path.join(ROOT, "scripts", "train_torch_*.py")))
+    assert len(scripts) == 6
+    for path in scripts:
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+        names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+        bad = [n for n in names if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                                        "visualodometry_tpu")]
+        assert not bad, (path, bad)
+        assert "visualodometry_tpu_torch" in {n.split(".")[0] for n in names}, path

@@ -79,11 +79,22 @@ def scatter_drop(dst: torch.Tensor, index: torch.Tensor, src: torch.Tensor) -> t
     """`dst.at[index].set(src, mode="drop")` for index in [0, len(dst)].
 
     Torch has no dropping scatter: entries whose index is len(dst) go to a
-    spare row that is cut off again. No host synchronisation (a
-    `nonzero` on the mask would need one). Returns a new tensor.
+    spare row that is cut off again. Where several entries share an index,
+    the last one wins, as in XLA's scatter on the CPU: an indexed write
+    with duplicates keeps an arbitrary one on CUDA (and on the CPU with
+    several threads), so the entries that lose are sent to the spare row
+    first, with an order-free `amax` over their positions. No host
+    synchronisation (a `nonzero` on the mask would need one). Returns a
+    new tensor.
     """
+    n = dst.shape[0]
+    index = index.long()
+    order = torch.arange(index.shape[0], device=index.device)
+    last = torch.full((n + 1,), -1, dtype=torch.long, device=index.device)
+    last.scatter_reduce_(0, index, order, reduce="amax")
+    index = torch.where(last[index] == order, index, n)
     ext = torch.cat([dst, dst.new_zeros((1,) + dst.shape[1:])])
-    ext[index.long()] = src.to(dst.dtype)
+    ext[index] = src.to(dst.dtype)
     return ext[:-1]
 
 

@@ -448,6 +448,41 @@ def compute_descriptors(gauss, kps: OctaveKeypoints, theta, grad_packed=None, sa
     return desc / torch.clamp(norm2, min=1e-8)
 
 
+def _patch_size(cfg: VOConfig) -> int:
+    """The patch route's window side: twice the tap margin, in 8s."""
+    return -(-(2 * (_patch_margin(cfg) + 1)) // 8) * 8  # margin <= P//2 - 1
+
+
+def _padded_width(W_o: int, P: int) -> int:
+    return max(-(-W_o // 128) * 128, ((P + 127) // 128) * 128 + 128)
+
+
+def _patch_fits(H_o: int, budget: int, P: int) -> bool:
+    return -(-H_o // 8) * 8 >= P + 8 and budget % 8 == 0
+
+
+def patch_launches(cfg: VOConfig) -> list[tuple[int, int, int, int, int, int]]:
+    """K2's launches for one frame of `cfg.image_size` when extraction runs
+    on CUDA: (levels, padded rows, padded columns, slots, window rows,
+    window columns) for each octave whose padded height holds a window;
+    none when `sift_sampling` is "gather"."""
+    if cfg.sift_sampling not in ("auto", "patch"):
+        return []
+    budgets = _octave_budgets(cfg.padded_keypoints // cfg.sift_orientation_peaks,
+                              cfg.sift_num_octaves)
+    P = _patch_size(cfg)
+    W_o, H_o = cfg.image_size
+    if cfg.sift_first_octave == -1:
+        W_o, H_o = 2 * W_o, 2 * H_o
+    out = []
+    for o in range(cfg.sift_num_octaves):
+        if _patch_fits(H_o, budgets[o], P):
+            out.append((cfg.sift_scales_per_octave + 3, -(-H_o // 8) * 8,
+                        _padded_width(W_o, P), budgets[o], P + 8, P))
+        H_o, W_o = -(-H_o // 2), -(-W_o // 2)  # downsample_2x keeps rows 0, 2, ...
+    return out
+
+
 def _octave_budgets(total: int, num_octaves: int) -> list[int]:
     """Split the keypoint budget over octaves, halving per octave."""
     budgets = []
@@ -481,16 +516,15 @@ def extract_sift_from_pyramid(pyr_pair, cfg: VOConfig) -> Features:
     mode = cfg.sift_sampling
     on_cuda = gauss[0].device.type == "cuda"
     want_patch = mode == "patch" or (mode == "auto" and on_cuda)
-    P = -(-(2 * (_patch_margin(cfg) + 1)) // 8) * 8  # margin <= P//2 - 1
+    P = _patch_size(cfg)
 
     all_xy, all_desc, all_valid = [], [], []
     for o in range(cfg.sift_num_octaves):
         kps = detect_octave(dogs[o], cfg, budgets[o])
         _, H_o, W_o = gauss[o].shape
         h_pad = -(-H_o // 8) * 8
-        w_pad = max(-(-W_o // 128) * 128, ((P + 127) // 128) * 128 + 128)
-        fits = h_pad >= P + 8 and budgets[o] % 8 == 0
-        if want_patch and fits:
+        w_pad = _padded_width(W_o, P)
+        if want_patch and _patch_fits(H_o, budgets[o], P):
             field = _pack_gradients_planar(gauss[o], h_pad, w_pad)
             y0, x0 = _patch_origins(kps, H_o, W_o, h_pad, P)
             lvl = torch.clamp(kps.scale_idx, 0, field.shape[0] - 1).to(torch.int32)

@@ -1,4 +1,5 @@
-"""The learned models: SuperPoint, the attention matcher, and their weights."""
+"""The learned models: SuperPoint, the attention matcher, their weights, and
+their trainers (train_*.py, vo_distill.py, matcher_data.py, optim.py)."""
 
 from visualodometry_tpu_torch.models.attention_matcher import (  # noqa: F401
     AttentionMatcher,
@@ -15,6 +16,7 @@ from visualodometry_tpu_torch.models.superpoint import (  # noqa: F401
     SuperPointBackbone,
     SuperPointDense,
     heatmap_from_logits,
+    init_superpoint,
     is_dense_params,
     nms_heatmap,
     select_keypoints,

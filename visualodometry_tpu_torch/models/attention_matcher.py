@@ -4,7 +4,9 @@ Port of visualodometry_tpu/models/attention_matcher.py: L blocks of masked
 self- and cross-attention over the two keypoint sets with an MLP
 positional encoding, then a dual-softmax assignment gated by per-point
 matchability. `adaptive_match` adds the v2 checkpoints' width pruning
-after block 0 and the early exit on per-layer confidence.
+after block 0 and the early exit on per-layer confidence. The module takes
+one pair ((N, D) inputs) or a batch of pairs ((B, N, D)) in one pass;
+`all_layers` gives every block's heads, for training.
 
 Precision, as the JAX package's `compute_dtype`: with bf16, every Dense
 layer of the attention and the MLP casts its input, weight and bias to
@@ -57,16 +59,22 @@ class _Attention(nn.Module):
         self.q, self.k, self.v, self.proj = (nn.Linear(dim, dim) for _ in range(4))
 
     def forward(self, q_in, kv_in, kv_mask):
+        """q_in (..., Nq, D), kv_in (..., Nk, D), kv_mask (..., Nk): the
+        leading axes, if any, are a batch of independent pairs."""
         h, dt = self.heads, self.dtype
-        n_q, dim = q_in.shape
+        *lead, n_q, dim = q_in.shape
         dh = dim // h
-        q = _dense(self.q, q_in, dt).reshape(n_q, h, dh).transpose(0, 1).float()
-        k = _dense(self.k, kv_in, dt).reshape(-1, h, dh).transpose(0, 1).float()
-        v = _dense(self.v, kv_in, dt).reshape(-1, h, dh).transpose(0, 1).float()
-        logits = torch.matmul(q, k.transpose(1, 2)) / math.sqrt(dh)  # (h, q, k)
-        logits = torch.where(kv_mask[None, None, :], logits, _NEG)
+
+        def split(x):  # (..., n, D) -> (..., h, n, dh)
+            return x.reshape(*x.shape[:-1], h, dh).transpose(-3, -2).float()
+
+        q = split(_dense(self.q, q_in, dt))
+        k = split(_dense(self.k, kv_in, dt))
+        v = split(_dense(self.v, kv_in, dt))
+        logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(dh)  # (..., h, q, k)
+        logits = torch.where(kv_mask[..., None, None, :], logits, _NEG)
         attn = torch.softmax(logits, dim=-1).to(dt)
-        out = torch.matmul(attn.float(), v).transpose(0, 1).reshape(n_q, dim)
+        out = torch.matmul(attn.float(), v).transpose(-3, -2).reshape(*lead, n_q, dim)
         return _dense(self.proj, out, dt)
 
 
@@ -167,27 +175,44 @@ class AttentionMatcher(nn.Module):
 
     def matchability_at(self, i: int, x0, x1):
         head = self.match_heads[self._head(i)]
-        return torch.sigmoid(head(x0))[:, 0], torch.sigmoid(head(x1))[:, 0]
+        return torch.sigmoid(head(x0))[..., 0], torch.sigmoid(head(x1))[..., 0]
 
     def heads_at(self, i: int, x0, x1):
         """(sim, m0, m1) from layer-i embeddings (the shared head when the
         heads are not per layer)."""
         proj = self.out_projs[self._head(i)]
-        sim = torch.matmul(proj(x0), proj(x1).T) / self.temperature
+        sim = torch.matmul(proj(x0), proj(x1).transpose(-1, -2)) / self.temperature
         return (sim, *self.matchability_at(i, x0, x1))
 
     def confidence_at(self, i: int, x0, x1):
         head = self.conf_heads[i]
-        return torch.sigmoid(head(x0))[:, 0], torch.sigmoid(head(x1))[:, 0]
+        return torch.sigmoid(head(x0))[..., 0], torch.sigmoid(head(x1))[..., 0]
 
     def forward(self, kps0, desc0, valid0, kps1, desc1, valid1):
-        """Full depth. Normalized kps (N, 2) in [-1, 1].
+        """Full depth. Normalized kps (N, 2) in [-1, 1], or (B, N, 2) with
+        every input batched the same way.
 
-        Returns (scores (N0, N1), matchability0 (N0,), matchability1)."""
+        Returns (scores (N0, N1), matchability0 (N0,), matchability1),
+        with the same leading batch axis when the inputs have one."""
         x0, x1 = self.embed(kps0, desc0, kps1, desc1)
         for i in range(self.depth):
             x0, x1 = self.run_block(i, x0, x1, valid0, valid1)
         return self.heads_at(self.depth - 1, x0, x1)
+
+    def all_layers(self, kps0, desc0, valid0, kps1, desc1, valid1):
+        """Per-layer (sim, m0, m1, c0, c1) for deep supervision; c is ones
+        when the heads are shared. Inputs as `forward`'s."""
+        x0, x1 = self.embed(kps0, desc0, kps1, desc1)
+        outs = []
+        for i in range(self.depth):
+            x0, x1 = self.run_block(i, x0, x1, valid0, valid1)
+            sim, m0, m1 = self.heads_at(i, x0, x1)
+            if self.per_layer_heads:
+                c0, c1 = self.confidence_at(i, x0, x1)
+            else:
+                c0, c1 = torch.ones_like(m0), torch.ones_like(m1)
+            outs.append((sim, m0, m1, c0, c1))
+        return outs
 
 
 def assignment_from_scores(sim, m0, m1, valid0, valid1, threshold: float = 0.2) -> MatchResult:

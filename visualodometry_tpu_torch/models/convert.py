@@ -1,10 +1,12 @@
-"""Weight conversion: Flax parameter trees and torch SuperPoint checkpoints
-to the port's state dicts.
+"""Weight conversion between Flax parameter trees, torch SuperPoint
+checkpoints and the port's state dicts.
 
 Counterpart of visualodometry_tpu/models/convert.py, which maps a torch
-SuperPoint checkpoint onto the Flax tree. Here the direction is the other
-one: the bundled Flax weights (models/weights.py) become state dicts of
-the port's modules.
+SuperPoint checkpoint onto the Flax tree. Here the bundled Flax weights
+(models/weights.py) become state dicts of the port's modules, and the
+inverse converters turn a port-trained state dict back into the Flax tree
+of numpy arrays, the layout the JAX trainers pickle
+(`train_superpoint.save_params`).
 
 - Convolutions: Flax kernels are HWIO, `nn.Conv2d` weights OIHW.
 - Dense layers: Flax kernels are (in, out), `nn.Linear` weights (out, in).
@@ -86,6 +88,60 @@ def attention_state_dict_from_flax(params: dict) -> dict[str, torch.Tensor]:
 
     walk(tree, ())
     return out
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().to("cpu", torch.float32).numpy())
+
+
+def superpoint_flax_from_state_dict(state: dict) -> dict:
+    """The Flax tree `{"params": {layer: {"kernel" (kh, kw, I, O), "bias"}}}`
+    of a `SuperPointBackbone` or `SuperPointDense` state dict (the inverse of
+    `superpoint_state_dict_from_flax`)."""
+    tree = {}
+    for key, t in state.items():
+        layer, part = key.rsplit(".", 1)
+        a = _array(t)
+        tree.setdefault(layer, {})["kernel" if part == "weight" else "bias"] = (
+            np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0))) if part == "weight" else a
+        )
+    return {"params": tree}
+
+
+def _flax_attention_path(key: str, n_heads: int) -> tuple[str, ...]:
+    """The port's module path of an AttentionMatcher layer -> its Flax path
+    (the inverse of `_attention_key`)."""
+    parts = key.split(".")
+    top = {"pos_d0": "Dense_0", "pos_d1": "Dense_1", "in_proj": "in_proj"}
+    if parts[0] in top:
+        return (top[parts[0]],)
+    if parts[0] == "blocks":
+        inner = {"mlp0": ("Dense_0",), "mlp1": ("Dense_1",)}.get(parts[2], tuple(parts[2:]))
+        return (f"block{parts[1]}",) + inner
+    for port_name, flax_name in (("out_projs", "out_proj"), ("match_heads", "matchability")):
+        if parts[0] == port_name:
+            i = int(parts[1])
+            return (flax_name if i == n_heads - 1 else f"{flax_name}{i}",)
+    if parts[0] == "conf_heads":
+        return (f"confidence{parts[1]}",)
+    raise KeyError(f"attention matcher: unknown layer {key}")
+
+
+def attention_flax_from_state_dict(state: dict) -> dict:
+    """The Flax tree of an `AttentionMatcher` state dict (the inverse of
+    `attention_state_dict_from_flax`): Linear (out, in) -> Dense (in, out)."""
+    n_heads = len({k.split(".")[1] for k in state if k.startswith("out_projs.")})
+    tree: dict = {}
+    for key, t in state.items():
+        layer, part = key.rsplit(".", 1)
+        node = tree
+        for name in _flax_attention_path(layer, n_heads):
+            node = node.setdefault(name, {})
+        a = _array(t)
+        node["kernel" if part == "weight" else "bias"] = (
+            np.ascontiguousarray(a.T) if part == "weight" else a
+        )
+    return {"params": tree}
 
 
 def load_torch_superpoint(checkpoint_path: str) -> dict[str, torch.Tensor]:

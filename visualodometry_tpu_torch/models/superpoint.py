@@ -30,6 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from visualodometry_tpu_torch._device import resolve_device
 from visualodometry_tpu_torch.frontend.interface import Features
 
 
@@ -252,6 +253,17 @@ def select_keypoints(
     )
     desc = desc / torch.clamp(torch.linalg.vector_norm(desc, dim=-1, keepdim=True), min=1e-8)
     return Features(kps=torch.stack([xs, ys], dim=-1), desc=desc, valid=valid)
+
+
+def init_superpoint(generator: torch.Generator, input_hw=(480, 640), device=None) -> SuperPointBackbone:
+    """A freshly initialised `SuperPointBackbone` on `device` (CUDA unless
+    "cpu" is asked for): LeCun-normal kernels from `generator`, zero biases.
+    The parameters do not depend on the input size; `input_hw` is the JAX
+    function's, where it shapes the dummy input of `init`."""
+    del input_hw
+    model = SuperPointBackbone()
+    model.init_random(generator)
+    return model.to(resolve_device(device))
 
 
 def superpoint_heads(model: nn.Module, imgs: torch.Tensor, compute_dtype=torch.bfloat16):
