@@ -61,11 +61,13 @@ Phases (any failed check raises, so the script exits non-zero):
      bench.py:_build_superpoint_cfg's overrides (2048 slots, P3P, the dense
      SuperPoint weights, bf16 network, Lowe 0.92) on the same 32 frames in
      4 chunks of 8: counts zeroed before and read after (K1 x 32, K2 x 0,
-     K3 x 0), resets == 0, sim3 ATE (frames 8:) <= 0.10 m, keyframes at
-     least the JAX package's CPU count less 3 (scripts/learned_jax_cpu.py);
+     K3 x 0) at each seed of SP_SEEDS: resets == 0, keyframes at least the
+     JAX package's CPU count less 3 (scripts/learned_jax_cpu.py), sim3 ATE
+     (frames 8:) under the gross bound, and the seeds' median against the
+     JAX package's CPU median over seeds 0-7 (SEED_MEDIAN_FACTOR);
      the device busy times (profiler) of the network (B = 8), of keypoint
-     selection and of the matcher, the step's wall time, and a second,
-     timed pass;
+     selection and of the matcher, the step's wall time and a second, timed
+     pass (both over frames 0-15);
  11. the attention path: BENCH_CFG with the attention matcher (the v2
      weights, `adaptive_match` with pruning to 1024 and exit at 0.95, bf16):
      K2 x 96, K1 x 0, K3 x 0, resets == 0, sim3 ATE <= 0.05 m, keyframes as
@@ -82,9 +84,11 @@ Phases (any failed check raises, so the script exits non-zero):
      advanced indexing;
  15. the KLT path as bench.py:bench_klt builds it (SIFT per chunk of 8, then
      the KLT step frame by frame): counts zeroed before and read after (K2
-     x 3 x 32 + 6 x tracking frames, all TMA; K1, K3 x 0), resets == 0,
-     tracking at the end, sim3 ATE <= KLT_ATE_LIMIT, host syncs a frame,
-     a tracking chunk's device busy share, second-pass frames/s;
+     x 3 x 32 + 6 x tracking frames, all TMA; K1, K3 x 0) at each seed of
+     KLT_SEEDS: resets == 0, tracking at the end, sim3 ATE under the gross
+     bound, the seeds' median against the JAX package's CPU median over
+     seeds 0-7; host syncs a frame, a tracking chunk's device busy share,
+     and frames/s of a second pass over frames 0-15;
  16. `klt_track` from frame 0 to 1 on its SIFT keypoints: the patch (K2)
      and gather paths on the card against the same paths on the CPU, and
      against each other;
@@ -95,7 +99,8 @@ Phases (any failed check raises, so the script exits non-zero):
      <= BA_ATE_LIMIT, the main path's launches;
  19. `VOEngine(enable_ba=True)` on 16 frames with a checkpoint round trip
      at each seed of ENGINE_BA_SEEDS, the resumed track within
-     ENGINE_BA_RESUME_FRACTION of the path, and `positions(smoothed=True)`;
+     ENGINE_BA_RESUME_FRACTION of the path, and `positions(smoothed=True)`,
+     called twice: the second call bit-equal to the first;
  20. K1 with a lane axis (after phase 2): B = 4 lanes at 4096 x 4096 x 128
      and 3 ragged lanes at 4001 x 4059, each lane of the one launch through
      `_k1_parity` and bit-equal to its own 2-D launch, B = 1 bit-equal to the
@@ -110,9 +115,9 @@ Phases (any failed check raises, so the script exits non-zero):
      2, 4 lanes of the 32 frames (+5 b brightness): counts zeroed before the
      pass and read after (K1 x 32 carrying B lanes each, K2 x 96 B, K3 x 0),
      every lane at the main path's limits, lane 0 at B = 4 against the main
-     path, at most 2 host syncs a tracking frame, and a second pass,
-     bit-equal to the first, with its aggregate frames/s and device busy
-     share (no limit);
+     path, at most 2 host syncs a tracking frame, two tracking frames'
+     device busy share, and a second pass over frames 0-15, bit-equal to
+     the first there, with its aggregate frames/s (no limit);
  23. the CLI (after phase 6), `visualodometry_tpu_torch.cli.main` in this
      process on phase 6's 32 frames written as a KITTI tree (PNG by a stdlib
      writer): the native decoder built from the checkout, `decode_batch` on
@@ -120,9 +125,17 @@ Phases (any failed check raises, so the script exits non-zero):
      255)) and on the native route, its host ms a chunk; the CLI's resolved
      config equal to the main path's; chunked (`--chunk 8`): 32 frames, K1 x
      32, K2 x 96, K3 x 0, ATE <= CLI_ATE_LIMIT; per frame with `--ba
-     --smooth` on 16 frames: K1 x 16, K2 x 48, a finite ATE; `--tracker klt`:
-     32 frames, K2 x 3 x 32 + 6 x 31 all on the TMA route, K1 and K3 x 0,
-     ATE <= CLI_KLT_ATE_LIMIT;
+     --smooth` on 16 frames: K1 x 16, K2 x 48, a finite ATE; `--tracker klt`
+     at each seed of CLI_KLT_SEEDS: 32 frames, K2 x 3 x 32 + 6 x 31 all on
+     the TMA route, K1 and K3 x 0, ATE under the gross bound, the median
+     against the JAX CLI's CPU median; then the drill
+     (tests/test_realdata_drill.py): its 32 frames at 1226x370 rendered
+     with the value noise texture (CRC32 against the JAX reference's),
+     through the per-frame engine at `get_config("kitti", "sift")` with
+     only DRILL_SETS, at each seed of DRILL_SEEDS: 32 frames, K1 x 32, K2
+     as `patch_launches` predicts, the ATE present as in the JAX CLI's runs
+     (scripts/realdata_drill_jax_cpu.py), each under 5.0 m and the median
+     against the JAX CLI's median;
  24. training (after the KITTI-gates phases): (a) the dataset functions on the
      card, `build_vo_pool` (one scene of 8 frames at 640x360, first octave
      -1, 1024 slots), `build_sift_match_dataset` (8 pairs at 240x320, 512
@@ -141,7 +154,27 @@ Phases (any failed check raises, so the script exits non-zero):
      and steps/s, host batch ms, device step ms, busy share, peak memory and
      FLOP/s; (d) the data-parallel SuperPoint step (96x128, batch 16) on a
      one-rank NCCL mesh, bit-equal to the plain step, and as two gloo ranks
-     sharing the card, exactly the one-process mean of the halves.
+     sharing the card, exactly the one-process mean of the halves;
+ 25. the long corridor (tests/test_long_sequence.py's configuration,
+     LONG_CFG: 2048 slots over two orientation peaks, P3P, in-loop BA, an
+     8192-slot landmark ring) on make_long_corridor_fixture's 256 frames at
+     640x360 (blackout at 150-153; CRC32 against the JAX reference's), at
+     each seed of LONG_SEEDS with the counts zeroed before and read after:
+     the first reset in the blackout and the last within 60 frames after
+     it, none before it, tracking at the end, more than 30 keyframes, a
+     final segment of at least 48 frames, the ring wrapped (`next_id` >
+     8192) with every live id in slot id % 8192 and none older than
+     next_id - 8192, BA ran, K1 x 256, K2 as `patch_launches` predicts, K3
+     x 0, all TMA; the pre-blackout drift's median and max against the cv2
+     reference loop's (scripts/long_corridor_jax_cpu.py), the segment ATEs'
+     medians against the JAX package's CPU medians and every pass at the
+     gross bound; frames/s, device busy share and host syncs a frame;
+ 26. SIFT against OpenCV (tests/test_sift_vs_opencv.py's 640x480 pair,
+     CRC32 against the measured pair): the port's extractor on the card,
+     scored on the host (exact nearest-two search for the ratio test) at
+     repeatability@3px > 0.5 and >= 0.9 x cv2's, precision@4px > 0.9 and
+     >= cv2's - 0.05 with more than 100 correct, more than 200 keypoints a
+     frame; K2 x 2 frames x its octaves, all TMA.
 K1 is also held against its plain version at the SuperPoint path's shape,
 2048 x 2048 x 256, and timed there beside `cdist` + `topk`, on a log line of
 its own (phase 2). Every phase logs its seconds.
@@ -252,6 +285,13 @@ GATES_SEEDS = (0, 1, 2, 3)
 GATES_JAX_CPU_SEGMENT_ATE = (7.658, 7.123, 7.066, 5.518, 7.466, 14.683, 8.573, 7.067)
 GATES_MEDIAN_FACTOR = 2.0
 GATES_GROSS_SHARE = 0.2
+# The same rule for the other paths whose ATE the draws set (KLT, SuperPoint,
+# the CLI's KLT mode, the drill, the long corridor's segments): a seed set's
+# median at SEED_MEDIAN_FACTOR times the JAX package's CPU median over seeds
+# 0-7, every pass at SEED_GROSS_SHARE of the ground-truth path it is
+# measured over (computed from the fixture): a gross failure, not drift.
+SEED_MEDIAN_FACTOR = 2.0
+SEED_GROSS_SHARE = 0.1
 
 # the learned paths: bench.py:_build_superpoint_cfg's overrides on
 # get_config("kitti", "superpoint") (the port's matcher is K1 on CUDA
@@ -265,17 +305,23 @@ SP_OVERRIDES = dict(
     min_parallax_deg=0.35,
     matcher_backend="jnp",
 )
-# Limits. ATE: the JAX reference's TPU records are 0.027 m (SuperPoint) and
-# 0.012 m (attention) (BENCH_r05.json); tracking failures show as
-# metre-class ATE. Keyframes: the JAX package on the CPU over the same
-# frames (scripts/learned_jax_cpu.py) less LEARNED_KF_MARGIN, for gate
-# flags that flip at marginal flows.
-SP_ATE_LIMIT = 0.10
+# Limits. ATE: attention at the JAX reference's TPU record, 0.012 m
+# (BENCH_r05.json), with room; tracking failures show as metre-class ATE.
+# Keyframes: the JAX package on the CPU over the same frames
+# (scripts/learned_jax_cpu.py) less LEARNED_KF_MARGIN, for gate flags that
+# flip at marginal flows. The SuperPoint path's ATE is set by the RANSAC
+# draws, so it is held over SP_SEEDS, each pass at the per-pass checks and
+# SEED_GROSS_SHARE of the path, their median at SEED_MEDIAN_FACTOR times
+# the JAX package's CPU median over seeds 0-7 (scripts/learned_jax_cpu.py
+# --seeds 0 1 2 3 4 5 6 7): SP_JAX_CPU_ATE.
 AT_ATE_LIMIT = 0.05
+SP_SEEDS = (0, 1, 2, 3)
+SP_JAX_CPU_ATE = (0.03157, 0.03374, 0.03446, 0.03137, 0.03792, 0.02620, 0.04311, 0.02832)
 SP_JAX_CPU_KEYFRAMES = 31
 AT_JAX_CPU_KEYFRAMES = 31
 LEARNED_KF_MARGIN = 3
 K1_SP_SHAPE = (2048, 2048, 256)
+K1_LONG_SHAPE = (2048, 2048, 128)  # the long corridor's 2048 slots
 
 # KLT mode (bench.py:bench_klt at BENCH_CFG): K2's windows, (rows, cols),
 # for the template and the next frame at radius 4 and drift 6, on the
@@ -284,14 +330,14 @@ K1_SP_SHAPE = (2048, 2048, 256)
 KLT_WINDOWS = ((24, 16), (40, 32))
 KLT_FIELDS = ((376, 1280), (192, 640), (96, 384))
 # Limits. The JAX package on the CPU over the same 32 frames (its gather
-# path; scripts/klt_ba_jax_cpu.py): 0 resets and tracking at the end at
-# every seed; sim3 ATE (frames 8:) 0.0658 m at seed 0, and 0.1268, 0.0589,
-# 0.7943 m at seeds 1-3. The path's ATE is set by the RANSAC draws (the
-# port on the card: 0.053-0.397 m over six seeds), so the limit is the
-# reference's worst over those four seeds, rounded up: a tighter one would
-# test the draws, not the port. Resets are held at 0.
-KLT_JAX_CPU_ATE = 0.0658
-KLT_ATE_LIMIT = 0.80
+# path; scripts/klt_ba_jax_cpu.py --seeds 0 1 2 3 4 5 6 7): 0 resets and
+# tracking at the end at every seed; sim3 ATE (frames 8:) KLT_JAX_CPU_ATE.
+# The path's ATE is set by the RANSAC draws, so each seed of KLT_SEEDS is a
+# pass held at 0 resets, tracking at the end, its launches and
+# SEED_GROSS_SHARE of the path, and their median at SEED_MEDIAN_FACTOR
+# times the JAX package's median.
+KLT_SEEDS = (0, 1, 2, 3)
+KLT_JAX_CPU_ATE = (0.0658, 0.1268, 0.0589, 0.7943, 0.0523, 0.1516, 0.0461, 0.6430)
 # patch against gather on the card, each against the same path on the CPU
 # (the port's CPU paths are held against JAX by tests/test_torch_klt.py):
 # tracked sets equal on >= 98% of the live slots and positions within
@@ -333,6 +379,13 @@ BA_SOLVE_X_TOL = 2e-3
 # the multi-sequence run (bench.py:bench_multiseq): lane counts, and K1's
 # lane-axis phase at the main path's shape
 MULTISEQ_LANES = (1, 2, 4)
+# the repeat pass covers the first two chunks (the script's time limit):
+# chunk 0 starts every lane, chunk 1 tracks
+MULTISEQ_REPEAT_FRAMES = 16
+MULTISEQ_PROFILED = (CHUNK, CHUNK + 1)  # two tracking frames of the second chunk
+# the timed passes that only read frames/s (learned paths, KLT) cover the
+# first two chunks, as the multi-sequence repeat does
+TIMED_FRAMES = 16
 K1_LANE_SHAPE = (4096, 4096, 128)
 # a spawned rank of the distributed BA must report within this many seconds
 DIST_TIMEOUT_S = 300
@@ -354,20 +407,111 @@ DIST_TIMEOUT_S = 300
 # Limits on the CLI's `ate_xz_sim3` (all frames, x and z, rounded to 1e-3 m).
 # The JAX CLI on the CPU over the same tree (scripts/cli_jax_cpu.py, the
 # float32 `jnp` matcher in place of the Pallas one): chunked 0.121 m; the
-# limit is 4x it, as the main path's is 4x its reference. KLT: 0.535, 0.583,
-# 0.580, 0.684 m at --set seed=0..3; the limit is the worst, rounded up (the
-# KLT path's ATE is set by the RANSAC draws: PERF.md, section 6).
+# limit is 4x it, as the main path's is 4x its reference. KLT: its ATE is
+# set by the RANSAC draws, so `--tracker klt` runs at each seed of
+# CLI_KLT_SEEDS (`--set seed=N`), each run held at its launches and
+# SEED_GROSS_SHARE of the tree's x-z path, their median at
+# SEED_MEDIAN_FACTOR times the JAX CLI's median over seeds 0-7
+# (scripts/cli_jax_cpu.py --stage klt --seeds 0 1 2 3 4 5 6 7).
 CLI_SEQUENCE = "05"
 CLI_JAX_CPU_ATE = 0.121
 CLI_ATE_LIMIT = 4.0 * CLI_JAX_CPU_ATE
-CLI_KLT_ATE_LIMIT = 0.70
+CLI_KLT_SEEDS = (0, 1, 2, 3)
+CLI_KLT_JAX_CPU_ATE = (0.535, 0.583, 0.580, 0.684, 0.602, 0.353, 0.708, 0.540)
 CLI_ENGINE_FRAMES = 16
+# the real-data drill (tests/test_realdata_drill.py): the reference's KITTI
+# gate set (get_config("kitti", "sift"): min_median_flow 40, pnp_reproj_err
+# 1, P3P) with only the drill's two overrides, through the CLI's per-frame
+# engine, on its tree of 32 frames rendered with the value noise texture
+# (the photo texture needs matplotlib, which the card's machine lacks)
+DRILL_FRAMES = 32
+DRILL_SCENE = dict(speed=2.4, turn_rate=0.002, num_landmarks=2, image_size=IMG_SIZE)
+DRILL_SETS = ["--set", "sift_edge_threshold=10", "--set", "global_scale=2.4"]
+DRILL_FRAMES_CRC32 = 3799056445
+DRILL_SEEDS = (0, 1, 2, 3)
+DRILL_JAX_CPU_ATE = (1.695, 1.820, 1.754, 1.698, 1.687, 1.699, 1.570, 1.698)
+DRILL_ATE_LIMIT = 5.0  # the drill's own bound (tests/test_realdata_drill.py)
 
 # the training phase (24): the recipes of the bundled dense SuperPoint and
 # v3 matcher at their full widths, TRAIN_STEPS steps each, over data the
 # dataset functions make on the card (cut from the recipes' 16 x 8-frame pool, 384
 # homography and 96 VO problems)
 TRAIN_STEPS = 30
+
+# the long corridor (phase 25): tests/test_long_sequence.py's `_cfg` (the
+# port's matcher is K1 on CUDA whatever matcher_backend says; test_torch_
+# long_corridor.py holds this dict equal to the JAX test's config) on
+# make_long_corridor_fixture at 640 x 360, 256 frames, blackout at 150-153
+LONG_CFG = dict(
+    extractor_type="sift",
+    max_keypoints=2048,
+    sift_n_features=2048,
+    sift_contrast_threshold=0.02,
+    sift_orientation_peaks=2,
+    sift_num_octaves=3,
+    min_median_flow=3.0,
+    max_reproj_err=2.0,
+    pnp_reproj_err=2.0,
+    min_depth=1.0,
+    min_parallax_deg=0.35,
+    lowe_ratio=0.75,
+    essential_hypotheses=256,
+    pnp_hypotheses=256,
+    pnp_solver="p3p",
+    map_capacity=8192,
+    matcher_backend="jnp",
+    ba_window=5,
+    ba_max_landmarks=1024,
+)
+LONG_FRAMES = 256
+LONG_SIZE = (640, 360)
+LONG_EXPLAINED = 60  # the JAX contract's recovery window after the blackout
+LONG_MIN_KEYFRAMES = 30  # the contract's `kf > 30`
+LONG_MIN_FINAL = 48  # frames in the final segment, the contract's floor
+# The reference, scripts/long_corridor_jax_cpu.py on the CPU (the JAX
+# package's renderer and runner): the uint8 frames' CRC32, so that the
+# frames rendered here are the frames it measured; the cv2 reference loop's
+# sim3 ATE on frames 8:144 of its run over frames 0-149
+# (`test_multi_seed_drift_distribution`'s `ref_pre`; 8:150 of the whole
+# run, the other test's, reads 2.6367 m); and at seeds 0-7 the JAX
+# package's sim3 ATE of the segment before the blackout (frames 0-150) and
+# of the final one (183-256). Every seed reset at 150 and 182, and kept 0
+# resets before the blackout.
+LONG_FRAMES_CRC32 = 903736627
+LONG_REF_PRE = 2.6226
+LONG_JAX_CPU_PRE_SEGMENT = (4.8753, 3.3758, 0.7914, 3.3761, 4.4108, 4.3133, 10.5636, 6.3383)
+LONG_JAX_CPU_FINAL_SEGMENT = (0.7378, 1.7411, 2.5343, 1.5445, 2.5949, 1.5346, 2.1542, 1.5793)
+# Limits. The pre-blackout drift (frames 8:144, the multi-seed test's
+# window) over LONG_SEEDS: median <= LONG_PRE_MEDIAN x and max <=
+# LONG_PRE_MAX x LONG_REF_PRE, the JAX test's own contract
+# (tests/test_long_sequence.py:242-243, over its seeds 0-2). The segment
+# ATEs: the JAX contract holds the final segment under 1.0 m and the first
+# under max(2.5 x ref_pre, 1.0) on one seed, but the JAX package itself
+# meets the first at 7 and the second at 1 of its 8 CPU seeds (above), so
+# both are held by the seed-set rule instead: the median over LONG_SEEDS at
+# SEED_MEDIAN_FACTOR x the JAX package's CPU median, every pass at
+# SEED_GROSS_SHARE of its segment's ground-truth path.
+LONG_SEEDS = (0, 1, 2)
+LONG_PRE_MEDIAN = 2.0
+LONG_PRE_MAX = 3.0
+# the chunks of the first pass whose host syncs are counted, and the one
+# whose device busy share is read (tracking, before the blackout)
+LONG_SYNC_CHUNKS = (1, 2, 3)
+LONG_PROFILE_CHUNK = 4
+
+# SIFT against OpenCV (phase 26): tests/test_sift_vs_opencv.py's pair (640 x
+# 480, scene seed 3, frames 0 and 1, float images) and extractor config. Its
+# bars are cv2's on that pair, recorded on the CPU (scripts/
+# sift_vs_opencv_cpu.py; the card's machine has no cv2): repeatability at 3
+# px, and the precision at 4 px of Lowe-ratio (0.75) matches; the pair's
+# float32 CRC32s say the frames rendered here are the frames measured.
+SIFT_PAIR_CFG = dict(extractor_type="sift", max_keypoints=1024, sift_n_features=1024,
+                     sift_contrast_threshold=0.02)
+SIFT_PAIR_SIZE = (640, 480)
+SIFT_PAIR_CRC32 = 738826828  # img0 and img1, float32 (2, 480, 640)
+SIFT_PAIR_DEPTH_CRC32 = 314008819  # depth of frame 0, float32
+SIFT_CV2_REPEATABILITY = 0.666667  # 777 and 799 keypoints (cv2 5.0.0)
+SIFT_CV2_PRECISION = 0.986486  # 438 correct
 TRAIN_POOL_SIZE, TRAIN_POOL_FRAMES = (640, 360), 8
 TRAIN_MATCH_HW, TRAIN_MATCH_PAIRS = (240, 320), 8
 TRAIN_VO_PAIRS = 12  # one scene of 8 frames: 6 x 2 pairs at gaps 1 and 2
@@ -569,7 +713,8 @@ def phase_match(torch, dev, card):
     err = max(err, _k1_parity(torch, m, d0[:4001], d1[:cut], valid1[:cut],
                               f"4001 x {cut} x {d}, ragged"))
 
-    at_256 = _k1_superpoint_shape(torch, m, dev, card)
+    at_256 = _k1_at_shape(torch, m, dev, card, K1_SP_SHAPE, 3, "the SuperPoint path's")
+    at_long = _k1_at_shape(torch, m, dev, card, K1_LONG_SHAPE, 5, "the long corridor's")
 
     t_k = time_ms(torch, lambda: m.match_top2(d0, d1, valid1))
     t_p = time_ms(torch, lambda: m._top2_torch(d0, d1, valid1))
@@ -593,14 +738,16 @@ def phase_match(torch, dev, card):
         bound_f32_cores_ms=flops / PEAK_F32_FLOPS * 1e3,
         # the SuperPoint path's shape, 2048 x 2048 x 256
         at_256d=at_256,
+        # the long corridor's, 2048 x 2048 x 128 (its launches: phase 25)
+        long_corridor=at_long,
     )
 
 
-def _k1_superpoint_shape(torch, m, dev, card):
-    """K1 at the SuperPoint path's shape: parity (as at 128-D), device time,
-    and its bound, on a log line of its own."""
-    n0, n1, d = K1_SP_SHAPE
-    g = torch.Generator(device=dev).manual_seed(3)
+def _k1_at_shape(torch, m, dev, card, shape, seed: int, where: str):
+    """K1 at another path's shape (n0, n1, d): parity (as at 4096 x 4096 x
+    128), device time, and its bound, on a log line of its own."""
+    n0, n1, d = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
     d0 = torch.randn(n0, d, generator=g, device=dev)
     d1 = torch.randn(n1, d, generator=g, device=dev)
     d0 /= d0.norm(dim=1, keepdim=True)
@@ -618,12 +765,13 @@ def _k1_superpoint_shape(torch, m, dev, card):
     t_ops = 3.0 * 2.0 * n0 * n1 * d / PEAK_TF32_FLOPS
     t_bytes = ((n0 + n1) * d * 4 + n1 + n0 * 12 + 2 * splits * n0 * 12) / PEAK_BYTES
     b = max(t_ops, t_bytes) * 1e3
-    log(f"K1 at the SuperPoint path's shape {n0} x {n1} x {d}: max abs err {err:.3e}, "
+    log(f"K1 at {where} shape {n0} x {n1} x {d}: max abs err {err:.3e}, "
         f"kernel_ms {t_k:.4f}, plain_ms {t_p:.4f}, library_ms {t_l:.4f} (cdist + topk), "
         f"bound_ms {b:.4f} "
         f"({'operations' if t_ops > t_bytes else 'bytes'}, 3 TF32 products per float32 "
         f"product), {b / t_k:.1%} of the bound, {splits} splits, on {card}")
-    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b)
+    return dict(shape=list(shape), max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                bound_ms=b)
 
 
 def _k1_library(torch, d0, d1, valid1):
@@ -691,11 +839,39 @@ def train_patch_launches() -> dict:
     }
 
 
+def long_corridor_config():
+    from visualodometry_tpu_torch import config_from_dict
+
+    return config_from_dict(LONG_CFG)
+
+
+def sift_pair_config():
+    from visualodometry_tpu_torch import config_from_dict
+
+    return config_from_dict(SIFT_PAIR_CFG)
+
+
+def path_patch_launches() -> dict:
+    """K2's launches for one frame of the long corridor (phase 25) and of
+    the OpenCV pair (phase 26), {name: (frames, [(L, H_pad, W_pad, K,
+    window rows, window cols), ...])}, as `patch_launches` predicts them
+    from each configuration at its image size."""
+    from visualodometry_tpu_torch.frontend.sift import patch_launches
+
+    return {
+        "long_corridor": (LONG_FRAMES, patch_launches(
+            long_corridor_config().replace(image_size=LONG_SIZE))),
+        "sift_opencv": (2, patch_launches(sift_pair_config().replace(image_size=SIFT_PAIR_SIZE))),
+    }
+
+
 def phase_patches(torch, dev):
     """K2 bit-equal to its plain version on random fields at every shape
-    the main path, the KITTI-gates path and phase 24's dataset functions
-    launch it at; times are the main path's frame (its three shapes), and
-    apart, one frame of each dataset function (its `train` record)."""
+    the main path, the KITTI-gates path, phase 24's dataset functions, the
+    long corridor and the OpenCV pair launch it at; times are the main
+    path's frame (its three shapes), and apart, one frame of each dataset
+    function (its `train` record) and of the other two paths (a record
+    each)."""
     from visualodometry_tpu_torch.ops import patches as p
 
     g = torch.Generator(device=dev).manual_seed(1)
@@ -740,17 +916,17 @@ def phase_patches(torch, dev):
     main = [launch(*shape, PATCH_Y, PATCH_X, timed=True) for shape in PATCH_SHAPES]
     for shape in GATES_PATCH_SHAPES:
         launch(*shape, PATCH_Y, PATCH_X, timed=False)
-    train = {}
-    for name, (frames, shapes) in train_patch_launches().items():
+    records = {}
+    for name, (frames, shapes) in {**train_patch_launches(), **path_patch_launches()}.items():
         per = [launch(*shape, timed=True) for shape in shapes]
         b_ms, _ = bound_ms(0.0, sum(t["nbytes"] for t in per))
-        train[name] = dict(
+        records[name] = dict(
             fields=[list(shape) for shape in shapes], frames=frames,
             **{k: sum(t[k] for t in per) for k in ("ms", "plain_ms", "library_ms")},
             bound_ms=b_ms)
         log(f"K2 at {name}'s shapes, one frame ({len(shapes)} launches): kernel "
-            f"{train[name]['ms']:.4f} ms, plain {train[name]['plain_ms']:.4f} ms, library "
-            f"{train[name]['library_ms']:.4f} ms, bound {b_ms:.4f} ms (bytes)")
+            f"{records[name]['ms']:.4f} ms, plain {records[name]['plain_ms']:.4f} ms, library "
+            f"{records[name]['library_ms']:.4f} ms, bound {b_ms:.4f} ms (bytes)")
     b_ms, b_by = bound_ms(0.0, sum(t["nbytes"] for t in main))
     return dict(
         name="extract_patches", route="cuda",
@@ -758,7 +934,8 @@ def phase_patches(torch, dev):
         replaces="visualodometry_tpu/ops/patches.py:139",
         max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
         **{k: sum(t[k] for t in main) for k in ("ms", "plain_ms", "library_ms")},
-        train=train,
+        train={name: records[name] for name in train_patch_launches()},
+        **{name: records[name] for name in path_patch_launches()},
     )
 
 
@@ -981,10 +1158,12 @@ def run_cli(argv: list[str]) -> dict:
     return json.loads(text.strip().splitlines()[-1])
 
 
-def phase_cli(torch, dev, card, scene, u8, tmp_root):
+def phase_cli(torch, dev, card, scene, u8, tmp_root, drill):
     """The CLI in its three modes on the main path's frames written as a
     KITTI tree: native decode, the chunked runner, the engine with BA and
-    smoothing, KLT."""
+    smoothing, KLT at each seed of CLI_KLT_SEEDS; then the drill's tree at
+    the reference's KITTI gate set (`drill`, a future of
+    `render_drill_fixture`)."""
     from visualodometry_tpu_torch import cli, config_from_dict
     from visualodometry_tpu_torch.data import native_decode
 
@@ -1044,10 +1223,12 @@ def phase_cli(torch, dev, card, scene, u8, tmp_root):
               "blur_stack": 0}, None),
             # 3 SIFT launches a frame and 6 a tracking frame: every frame
             # after the first, with no reset (phase_klt holds 0 on them)
-            ("KLT", ["--tracker", "klt"], N_FRAMES,
-             {"match_top2": 0, "extract_patches": 3 * N_FRAMES + 6 * (N_FRAMES - 1),
-              "blur_stack": 0}, CLI_KLT_ATE_LIMIT),
+            *((f"KLT, seed {seed}", ["--tracker", "klt", "--set", f"seed={seed}"], N_FRAMES,
+               {"match_top2": 0, "extract_patches": 3 * N_FRAMES + 6 * (N_FRAMES - 1),
+                "blur_stack": 0}, SEED_GROSS_SHARE * path_length(scene.gt_positions[:, [0, 2]]))
+              for seed in CLI_KLT_SEEDS),
         )
+        klt_ates = []
         for name, extra, frames, launches_want, limit in modes:
             zero_launches()
             res = run_cli(base + extra)
@@ -1065,8 +1246,75 @@ def phase_cli(torch, dev, card, scene, u8, tmp_root):
             check(launches == launches_want, f"CLI {name} launched {launches}, not "
                   f"{launches_want}")
             check(k2_routes["scalar"] == 0, f"CLI {name}: a K2 launch took the scalar loop")
+            if name.startswith("KLT"):
+                klt_ates.append(ate)
+        klt_limit = SEED_MEDIAN_FACTOR * float(np.median(CLI_KLT_JAX_CPU_ATE))
+        log(f"CLI KLT at seeds {list(CLI_KLT_SEEDS)}: ate_xz_sim3 {klt_ates}, median "
+            f"{np.median(klt_ates):.4f} m (limit {klt_limit:.4f} m, {SEED_MEDIAN_FACTOR:g} x the "
+            f"JAX CLI's CPU median over seeds 0-7)")
+        check(np.median(klt_ates) <= klt_limit, "CLI KLT: median ATE over the seed set")
+        cli_drill(torch, card, drill, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def render_drill_fixture():
+    """tests/test_realdata_drill.py's 32 frames with the value noise texture
+    named: (u8, ground-truth positions, CRC32 of the frames, seconds)."""
+    from visualodometry_tpu_torch.data.synthetic import make_scene, render_textured_image
+
+    t0 = time.perf_counter()
+    scene = make_scene(np.random.default_rng(7), num_frames=DRILL_FRAMES, **DRILL_SCENE)
+    imgs = np.stack([render_textured_image(scene, f, texture="noise")
+                     for f in range(DRILL_FRAMES)])
+    u8 = (np.clip(imgs, 0, 1) * 255 + 0.5).astype(np.uint8)
+    return u8, scene.gt_positions, zlib.crc32(u8.tobytes()), time.perf_counter() - t0
+
+
+def cli_drill(torch, card, drill, tmp_root):
+    """The drill's run: its tree through the CLI's per-frame engine at
+    `get_config("kitti", "sift")` with only DRILL_SETS, at each seed of
+    DRILL_SEEDS, counts zeroed before each run and read after."""
+    from visualodometry_tpu_torch import cli
+    from visualodometry_tpu_torch.frontend.sift import patch_launches
+
+    u8, gt, crc, render_s = drill.result(timeout=DIST_TIMEOUT_S)
+    log(f"drill tree: {u8.shape} uint8 rendered in {render_s:.1f} s in another process, CRC32 "
+        f"{crc} (the JAX reference's {DRILL_FRAMES_CRC32})")
+    check(crc == DRILL_FRAMES_CRC32, "the drill's frames are not the reference's frames")
+    root = os.path.join(tmp_root, "drill")
+    write_kitti_tree(root, u8, gt)
+    base = ["--dataset", "kitti", "--path", root, "--sequence", CLI_SEQUENCE, "--extractor",
+            "sift", "--max-frames", str(DRILL_FRAMES), *DRILL_SETS]
+    cfg = cli.resolve_config(cli.build_parser().parse_args(base))
+    check(cfg.min_median_flow == 40.0 and cfg.pnp_reproj_err == 1.0 and cfg.pnp_solver == "p3p",
+          "the drill does not run at the reference's KITTI gates")
+    want = {"match_top2": DRILL_FRAMES,
+            "extract_patches": DRILL_FRAMES * len(patch_launches(cfg.replace(image_size=IMG_SIZE))),
+            "blur_stack": 0}
+    ates = []
+    for seed in DRILL_SEEDS:
+        zero_launches()
+        res = run_cli(base + ["--set", f"seed={seed}"])
+        torch.cuda.synchronize()
+        launches, routes = read_launches(), read_routes()
+        ate = res.get("ate_xz_sim3")
+        log(f"CLI drill, seed {seed}: {res}, launches {launches}, K2 routes {routes}; on {card}")
+        check(res["frames"] == DRILL_FRAMES, f"CLI drill ran {res['frames']} frames")
+        check(launches == want, f"CLI drill launched {launches}, not {want}")
+        check(routes["scalar"] == 0, "CLI drill: a K2 launch took the scalar loop")
+        check((ate is not None) == (DRILL_JAX_CPU_ATE is not None),
+              f"CLI drill, seed {seed}: ATE {ate}, where the JAX CLI reports "
+              f"{'one' if DRILL_JAX_CPU_ATE else 'none'}")
+        if ate is not None:
+            check(np.isfinite(ate) and ate <= DRILL_ATE_LIMIT,
+                  f"CLI drill, seed {seed}: ATE {ate} m > {DRILL_ATE_LIMIT} m")
+            ates.append(ate)
+    if ates:
+        limit = min(DRILL_ATE_LIMIT, SEED_MEDIAN_FACTOR * float(np.median(DRILL_JAX_CPU_ATE)))
+        log(f"CLI drill at seeds {list(DRILL_SEEDS)}: ate_xz_sim3 {ates}, median "
+            f"{np.median(ates):.4f} m (limit {limit:.4f} m)")
+        check(np.median(ates) <= limit, "CLI drill: median ATE over the seed set")
 
 
 def gates_config():
@@ -1202,42 +1450,56 @@ def phase_learned(torch, dev, card, scene, u8, name: str):
     from visualodometry_tpu_torch.models.superpoint import select_keypoints, superpoint_heads
 
     sp = name == "superpoint"
-    cfg = superpoint_config() if sp else attention_config()
+    base_cfg = superpoint_config() if sp else attention_config()
     desc_dim = 256 if sp else 128
     chunks = [torch.as_tensor(u8[i : i + CHUNK]).to(dev) for i in range(0, N_FRAMES, CHUNK)]
 
-    def run_pass():
+    def run_pass(cfg, n=N_FRAMES):
         run = make_chunked_pipeline_fn(cfg, scene.K, device=dev)
         state = init_state(cfg, desc_dim=desc_dim, device=dev)
         outs = []
-        for c in chunks:
+        for c in chunks[: n // CHUNK]:
             state, out = run(state, c)
             outs.append(out)
         torch.cuda.synchronize()
         return run, state, outs
 
-    zero_launches()
-    t0 = time.perf_counter()
-    run, state, outs = run_pass()
-    first_s = time.perf_counter() - t0
-    launches = read_launches()
-    est = torch.cat([o.T_wc for o in outs])[:, :3, 3].cpu().numpy()
-    resets = int(sum(int(o.did_reset.sum()) for o in outs))
-    keyframes = int(sum(int(o.is_keyframe.sum()) for o in outs))
-    ate = float(ate_rmse(est[8:], scene.gt_positions[8 : len(est)], align="sim3"))
-    log(f"{name} path: {N_FRAMES} frames, {cfg.padded_keypoints} slots, resets {resets}, "
-        f"keyframes {keyframes}, sim3 ATE {ate:.6f} m, launches {launches}, first pass "
-        f"{first_s:.2f} s")
-    ate_limit = SP_ATE_LIMIT if sp else AT_ATE_LIMIT
+    # the SuperPoint path's ATE is the draws': a pass at each seed of
+    # SP_SEEDS, held each at the gross bound and together by their median
+    seeds = SP_SEEDS if sp else (base_cfg.seed,)
+    gross = SEED_GROSS_SHARE * path_length(scene.gt_positions[8:])
     jax_kf = SP_JAX_CPU_KEYFRAMES if sp else AT_JAX_CPU_KEYFRAMES
-    check(bool(np.isfinite(est).all()), f"{name} path produced non-finite poses")
-    check(resets == 0, f"{name} path reset {resets} times")
-    check(ate <= ate_limit, f"{name} path sim3 ATE {ate:.4f} m > {ate_limit} m")
-    check(keyframes >= jax_kf - LEARNED_KF_MARGIN,
-          f"{name} path made {keyframes} keyframes; the JAX package makes {jax_kf}")
     want = ({"match_top2": N_FRAMES, "extract_patches": 0, "blur_stack": 0} if sp
             else {"match_top2": 0, "extract_patches": 3 * N_FRAMES, "blur_stack": 0})
-    check(launches == want, f"{name} path launched {launches}, not {want}")
+    ates = []
+    for seed in seeds:
+        cfg = base_cfg.replace(seed=seed)
+        zero_launches()
+        t0 = time.perf_counter()
+        run, state, outs = run_pass(cfg)
+        first_s = time.perf_counter() - t0
+        launches = read_launches()
+        est = torch.cat([o.T_wc for o in outs])[:, :3, 3].cpu().numpy()
+        resets = int(sum(int(o.did_reset.sum()) for o in outs))
+        keyframes = int(sum(int(o.is_keyframe.sum()) for o in outs))
+        ate = float(ate_rmse(est[8:], scene.gt_positions[8 : len(est)], align="sim3"))
+        ates.append(ate)
+        log(f"{name} path, seed {seed}: {N_FRAMES} frames, {cfg.padded_keypoints} slots, resets "
+            f"{resets}, keyframes {keyframes}, sim3 ATE {ate:.6f} m, launches {launches}, first "
+            f"pass {first_s:.2f} s")
+        check(bool(np.isfinite(est).all()), f"{name} path produced non-finite poses")
+        check(resets == 0, f"{name} path reset {resets} times at seed {seed}")
+        limit = gross if sp else AT_ATE_LIMIT
+        check(ate <= limit, f"{name} path sim3 ATE {ate:.4f} m > {limit:.4f} m at seed {seed}")
+        check(keyframes >= jax_kf - LEARNED_KF_MARGIN,
+              f"{name} path made {keyframes} keyframes; the JAX package makes {jax_kf}")
+        check(launches == want, f"{name} path launched {launches}, not {want}")
+    if sp:
+        limit = SEED_MEDIAN_FACTOR * float(np.median(SP_JAX_CPU_ATE))
+        log(f"{name} path at seeds {list(seeds)}: sim3 ATE {[round(a, 6) for a in ates]} m, "
+            f"median {np.median(ates):.6f} m (limit {limit:.6f} m, {SEED_MEDIAN_FACTOR:g} x the "
+            f"JAX package's CPU median over seeds 0-7; every pass under {gross:.3f} m)")
+        check(np.median(ates) <= limit, f"{name} path: median ATE over the seed set")
 
     # device busy time of the stages on the first chunk, a frame's share
     feats = run.extract(chunks[0])
@@ -1256,24 +1518,24 @@ def phase_learned(torch, dev, card, scene, u8, name: str):
         t_ext = busy_ms(torch, lambda: run.extract(chunks[0]))
         stages = f"SIFT extraction {t_ext / CHUNK:.4f} ms/frame"
     t_match = busy_ms(torch, lambda: run.step.match(state.keyframe, feats[1]))
-    # the VO step alone, host clock over the 32 frames (it reads branch
-    # scalars back, so it cannot be queued behind a spin)
-    all_feats = [f for c in chunks for f in run.extract(c)]
+    # the VO step alone, host clock over the first TIMED_FRAMES frames (it
+    # reads branch scalars back, so it cannot be queued behind a spin)
+    all_feats = [f for c in chunks[: TIMED_FRAMES // CHUNK] for f in run.extract(c)]
     st = init_state(cfg, desc_dim=desc_dim, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for f in all_feats:
         st, _ = run.step(st, f)
     torch.cuda.synchronize()
-    t_step = (time.perf_counter() - t0) * 1e3 / N_FRAMES
+    t_step = (time.perf_counter() - t0) * 1e3 / TIMED_FRAMES
     del all_feats, st
 
     t0 = time.perf_counter()
-    run_pass()
+    run_pass(cfg, TIMED_FRAMES)
     dt = time.perf_counter() - t0
     log(f"{name} path device busy times: {stages}, matcher {t_match:.4f} ms/frame; VO step "
-        f"alone {t_step:.2f} ms/frame (wall); second pass {N_FRAMES / dt:.3f} frames/s "
-        f"({dt:.3f} s for {N_FRAMES} frames); on {card}")
+        f"alone {t_step:.2f} ms/frame (wall); second pass {TIMED_FRAMES / dt:.3f} frames/s "
+        f"({dt:.3f} s for {TIMED_FRAMES} frames); on {card}")
 
 
 def phase_engine_superpoint(torch, dev, scene, u8):
@@ -1394,68 +1656,79 @@ def phase_klt(torch, dev, card, scene, u8):
     chunks = [torch.as_tensor(u8[i : i + CHUNK]).to(dev) for i in range(0, N_FRAMES, CHUNK)]
     extract = make_batched_extract_fn(cfg, device=dev)
 
-    def run_pass(count=False):
-        step = make_klt_step_fn(cfg, scene.K, hw, device=dev)
+    def run_pass(count=False, seed=cfg.seed, n=N_FRAMES):
+        """One pass over the first `n` frames; with `count`, each step's
+        host syncs, and chunk 1's steps (all tracking frames) under the
+        profiler in their place: (outs, syncs, (busy ms, wall ms))."""
+        step = make_klt_step_fn(cfg.replace(seed=seed), scene.K, hw, device=dev)
         state = init_klt_state(cfg, hw, device=dev)
-        outs, syncs = [], []
-        for c in chunks:
-            feats = extract(c)
+        outs, syncs, busy = [], [], None
+
+        def steps(c, feats):
+            nonlocal state
             for img, f in zip(c, feats):
-                if count:
-                    (state, out), n = count_syncs(torch, lambda: step(state, img, f))
-                    syncs.append(n)
-                else:
-                    state, out = step(state, img, f)
+                state, out = step(state, img, f)
                 outs.append(out)
+
+        for k, c in enumerate(chunks[: n // CHUNK]):
+            feats = extract(c)
+            if count and k == 1:
+                busy = busy_share(torch, lambda: steps(c, feats))
+            elif count:
+                for img, f in zip(c, feats):
+                    syncs.append(count_syncs(torch, lambda: steps([img], [f]))[1])
+            else:
+                steps(c, feats)
         torch.cuda.synchronize()
-        return state, outs, syncs
+        return outs, syncs, busy
 
-    zero_launches()
-    state, outs, syncs = run_pass(count=True)
-    launches = read_launches()
-    est = torch.stack([o.T_wc for o in outs])[:, :3, 3].cpu().numpy()
-    resets = int(sum(bool(o.did_reset) for o in outs))
-    inited = [bool(o.initialized) for o in outs]
-    ate = _fixture_ate(est, scene.gt_positions)
-    tracked = [int(o.num_tracked) for o in outs]
-    promoted = sum(int(o.num_promoted) for o in outs)
-    tracking_frames = N_FRAMES - 1 - resets
-    want = {"match_top2": 0, "extract_patches": 3 * N_FRAMES + 6 * tracking_frames,
-            "blur_stack": 0}
-    log(f"KLT path: {N_FRAMES} frames, {cfg.padded_keypoints} slots, init frame "
-        f"{inited.index(True) if any(inited) else None}, resets {resets}, tracking at the end "
-        f"{inited[-1]}, sim3 ATE {ate:.6f} m (JAX CPU {KLT_JAX_CPU_ATE} m at seed 0), median tracked "
-        f"{float(np.median(tracked[1:])):.0f}, promoted {promoted}, launches {launches} "
-        f"(K2 routes {read_routes()}), host syncs a frame in the step {np.mean(syncs):.2f} "
-        f"(tracking frames {np.mean(syncs[2:]):.2f})")
-    check(bool(np.isfinite(est).all()), "KLT path produced non-finite poses")
-    check(resets == 0, f"KLT path reset {resets} times")
-    check(inited[-1], "KLT path is not tracking on the last frame")
-    check(ate <= KLT_ATE_LIMIT, f"KLT path sim3 ATE {ate:.4f} m > {KLT_ATE_LIMIT} m")
-    check(launches == want, f"KLT path launched {launches}, not {want}")
-    check(read_routes()["scalar"] == 0, "a KLT launch of K2 took the scalar loop")
-    klt_launches = launches
+    # the path's ATE is the draws': a pass at each seed of KLT_SEEDS, each
+    # held at the per-pass checks and the gross bound, their ATEs by median
+    gross = SEED_GROSS_SHARE * path_length(scene.gt_positions[8:])
+    ates, busy = [], None
+    for seed in KLT_SEEDS:
+        zero_launches()
+        outs, syncs, profiled = run_pass(count=seed == KLT_SEEDS[0], seed=seed)
+        busy = profiled or busy
+        launches, routes = read_launches(), read_routes()
+        est = torch.stack([o.T_wc for o in outs])[:, :3, 3].cpu().numpy()
+        resets = int(sum(bool(o.did_reset) for o in outs))
+        inited = [bool(o.initialized) for o in outs]
+        ate = _fixture_ate(est, scene.gt_positions)
+        ates.append(ate)
+        tracked = [int(o.num_tracked) for o in outs]
+        promoted = sum(int(o.num_promoted) for o in outs)
+        tracking_frames = N_FRAMES - 1 - resets
+        want = {"match_top2": 0, "extract_patches": 3 * N_FRAMES + 6 * tracking_frames,
+                "blur_stack": 0}
+        log(f"KLT path, seed {seed}: {N_FRAMES} frames, {cfg.padded_keypoints} slots, init frame "
+            f"{inited.index(True) if any(inited) else None}, resets {resets}, tracking at the end "
+            f"{inited[-1]}, sim3 ATE {ate:.6f} m, median tracked "
+            f"{float(np.median(tracked[1:])):.0f}, promoted {promoted}, launches {launches} "
+            f"(K2 routes {routes})" + (f", host syncs a frame in the step {np.mean(syncs):.2f} "
+                                       f"(tracking frames {np.mean(syncs[2:]):.2f}; chunk 1 under "
+                                       f"the profiler)" if syncs else ""))
+        check(bool(np.isfinite(est).all()), "KLT path produced non-finite poses")
+        check(resets == 0, f"KLT path reset {resets} times at seed {seed}")
+        check(inited[-1], f"KLT path is not tracking on the last frame at seed {seed}")
+        check(ate <= gross, f"KLT path sim3 ATE {ate:.4f} m > {gross:.4f} m at seed {seed}")
+        check(launches == want, f"KLT path launched {launches}, not {want}")
+        check(routes["scalar"] == 0, "a KLT launch of K2 took the scalar loop")
+        if seed == KLT_SEEDS[0]:
+            klt_launches = launches
+    limit = SEED_MEDIAN_FACTOR * float(np.median(KLT_JAX_CPU_ATE))
+    log(f"KLT path at seeds {list(KLT_SEEDS)}: sim3 ATE {[round(a, 6) for a in ates]} m, median "
+        f"{np.median(ates):.6f} m (limit {limit:.6f} m, {SEED_MEDIAN_FACTOR:g} x the JAX "
+        f"package's CPU median over seeds 0-7; every pass under {gross:.3f} m)")
+    check(np.median(ates) <= limit, "KLT path: median ATE over the seed set")
 
-    # the second chunk (all tracking frames) under the profiler, after the
-    # first: the device's busy share of the step's wall time
-    step = make_klt_step_fn(cfg, scene.K, hw, device=dev)
-    st = init_klt_state(cfg, hw, device=dev)
-    for img, f in zip(chunks[0], extract(chunks[0])):
-        st, _ = step(st, img, f)
-    feats = extract(chunks[1])
-
-    def chunk():
-        nonlocal st
-        for img, f in zip(chunks[1], feats):
-            st, _ = step(st, img, f)
-
-    busy, wall = busy_share(torch, chunk)
     t0 = time.perf_counter()
-    run_pass()
+    run_pass(n=TIMED_FRAMES)
     dt = time.perf_counter() - t0
-    log(f"KLT path: second pass {N_FRAMES / dt:.3f} frames/s ({dt:.3f} s for {N_FRAMES} "
-        f"frames); one tracking chunk of {CHUNK} under the profiler: device busy {busy:.1f} "
-        f"of {wall:.1f} ms wall ({busy / wall:.1%}); on {card}")
+    log(f"KLT path: second pass {TIMED_FRAMES / dt:.3f} frames/s ({dt:.3f} s for "
+        f"{TIMED_FRAMES} frames); one tracking chunk of {CHUNK} (the first pass's chunk 1) "
+        f"under the profiler: device busy {busy[0]:.1f} of {busy[1]:.1f} ms wall "
+        f"({busy[0] / busy[1]:.1%}); on {card}")
     return klt_launches
 
 
@@ -1634,9 +1907,14 @@ def phase_engine_ba(torch, dev, scene, u8, tmp_dir):
         if seed != ENGINE_BA_SEEDS[0]:
             continue
         smooth = whole.positions(smoothed=True)
+        again = whole.positions(smoothed=True)
         moved = float(np.abs(smooth - pos).max())
         log(f"VOEngine with BA, seed {seed}: smoothing moves positions by up to {moved:.3e} "
-            f"({100 * moved / length:.4f}% of the path)")
+            f"({100 * moved / length:.4f}% of the path); a second smoothing call bit-equal to "
+            f"the first: {np.array_equal(smooth, again)}")
+        # the pose graph's normal equations are sums over edges; they must add
+        # in one order on every call, or smoothing would not repeat
+        check(np.array_equal(smooth, again), "pose-graph smoothing does not repeat")
         check(smooth.shape == pos.shape == (16, 3) and bool(np.isfinite(smooth).all()),
               "VOEngine with BA: smoothed positions")
         # the pose graph re-fits a chain BA already made consistent; moving a
@@ -1718,7 +1996,9 @@ def phase_multiseq(torch, dev, card, scene, u8, main):
     extracted together, then the multi-sequence step runs frame by frame.
     At B = 1, 2, 4: counts zeroed before the pass and read after, the main
     path's limits on every lane, host syncs per tracking frame, and a second
-    pass's aggregate frames/s and a tracking window's device busy share."""
+    pass over the first MULTISEQ_REPEAT_FRAMES frames (bit-equal to the
+    first pass there; its aggregate frames/s) and a tracking window's device
+    busy share."""
     from visualodometry_tpu_torch import config_from_dict
     from visualodometry_tpu_torch.frontend.sift import make_batched_extract_fn
     from visualodometry_tpu_torch.parallel import init_batched_state, make_multiseq_step_fn
@@ -1732,36 +2012,46 @@ def phase_multiseq(torch, dev, card, scene, u8, main):
                          for b in range(B)], axis=1)  # (F, B, H, W)
         chunks = [torch.as_tensor(seqs[i : i + CHUNK]).to(dev) for i in range(0, N_FRAMES, CHUNK)]
 
-        def frames():
-            for c in chunks:
+        def frames(n=N_FRAMES):
+            for c in chunks[: n // CHUNK]:
                 feats = extract(c.reshape((-1,) + c.shape[2:]))
                 for f in range(c.shape[0]):
                     yield stack_states(feats[f * B : (f + 1) * B])
 
-        def run_pass(count=False):
+        def run_pass(count=False, n=N_FRAMES):
+            """With `count`, each frame's host syncs, and the two frames of
+            MULTISEQ_PROFILED under the profiler in their place (None)."""
             step = make_multiseq_step_fn(cfg, scene.K, device=dev)
             state = init_batched_state(cfg, 128, B, device=dev)
-            outs, syncs = [], []
-            for feats in frames():
-                if count:
-                    (state, out), n = count_syncs(torch, lambda: step(state, feats))
-                    syncs.append(n)
-                else:
-                    state, out = step(state, feats)
+            outs, syncs, busy = [], [], [0.0, 0.0]
+
+            def one(feats):
+                nonlocal state
+                state, out = step(state, feats)
                 outs.append(out)
+
+            for i, feats in enumerate(frames(n)):
+                if count and i in MULTISEQ_PROFILED:
+                    busy = [a + b for a, b in zip(busy, busy_share(torch, lambda: one(feats)))]
+                    syncs.append(None)
+                elif count:
+                    syncs.append(count_syncs(torch, lambda: one(feats))[1])
+                else:
+                    one(feats)
             torch.cuda.synchronize()
-            return step, state, outs, syncs
+            return outs, syncs, busy
 
         zero_launches()
-        _, _, outs, syncs = run_pass(count=True)
+        outs, syncs, (busy, wall) = run_pass(count=True)
         launches = read_launches()
         T = torch.stack([o.T_wc for o in outs]).cpu().numpy()  # (F, B, 4, 4)
         resets = torch.stack([o.did_reset for o in outs]).sum(0).tolist()
         keyframes = torch.stack([o.is_keyframe for o in outs]).sum(0).tolist()
         inited = torch.stack([o.initialized for o in outs]).cpu().numpy()
         ates = [_fixture_ate(T[:, b, :3, 3], scene.gt_positions) for b in range(B)]
-        # a tracking frame: every lane was tracking before it
-        tracking = [f for f in range(1, N_FRAMES) if inited[f - 1].all()]
+        # a tracking frame: every lane was tracking before it (the profiled
+        # frames' syncs are not counted)
+        tracking = [f for f in range(1, N_FRAMES) if inited[f - 1].all() and syncs[f] is not None]
         sync_max = max(syncs[f] for f in tracking)
         want = {"match_top2": N_FRAMES, "extract_patches": 3 * N_FRAMES * B, "blur_stack": 0}
         log(f"multi-sequence, B={B}: resets {resets}, keyframes {keyframes}, sim3 ATE per lane "
@@ -1781,30 +2071,18 @@ def phase_multiseq(torch, dev, card, scene, u8, main):
             check(abs(keyframes[0] - main["keyframes"]) <= 3,
                   "lane 0 keyframes differ from the main path's by more than 3")
 
+        n = MULTISEQ_REPEAT_FRAMES
         t0 = time.perf_counter()
-        _, _, again, _ = run_pass()
+        again, _, _ = run_pass(n=n)
         dt = time.perf_counter() - t0
-        same = repeats(torch, outs, again)
-        log(f"multi-sequence, B={B}: second pass T_wc, resets and keyframes bit-equal to the "
-            f"first: {same}")
+        same = repeats(torch, outs[:n], again)
+        log(f"multi-sequence, B={B}: second pass over frames 0-{n - 1}: T_wc, resets and "
+            f"keyframes bit-equal to the first pass's: {same}")
         check(same, f"multi-sequence B={B}: the second pass differs from the first")
-        # two tracking frames of the second chunk under the profiler
-        step = make_multiseq_step_fn(cfg, scene.K, device=dev)
-        state = init_batched_state(cfg, 128, B, device=dev)
-        feats = list(frames())
-        for f in feats[:CHUNK]:
-            state, _ = step(state, f)
-
-        def window():
-            nonlocal state
-            for f in feats[CHUNK : CHUNK + 2]:
-                state, _ = step(state, f)
-
-        busy, wall = busy_share(torch, window)
-        del feats
-        summary[B] = dict(fps=B * N_FRAMES / dt, busy=busy / wall)
-        log(f"multi-sequence, B={B}: second pass {B * N_FRAMES / dt:.3f} frames/s aggregate "
-            f"({dt:.3f} s for {B} x {N_FRAMES} frames); two tracking frames under the profiler: "
+        summary[B] = dict(fps=B * n / dt, busy=busy / wall)
+        log(f"multi-sequence, B={B}: second pass {B * n / dt:.3f} frames/s aggregate "
+            f"({dt:.3f} s for {B} x {n} frames); two tracking frames of the first pass "
+            f"({list(MULTISEQ_PROFILED)}) under the profiler: "
             f"device busy {busy:.1f} of {wall:.1f} ms wall ({busy / wall:.1%}); on {card}")
     return summary
 
@@ -2336,6 +2614,259 @@ def phase_train_dp(torch, dev, card):
     return dict(ranks_equal=ranks_equal, mean_exact=mean_exact, halves_exact=halves_exact)
 
 
+def path_length(gt: np.ndarray) -> float:
+    """Length of the ground-truth path through the positions `gt`."""
+    return float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum()) if len(gt) > 1 else 0.0
+
+
+def ring_holds(ids: np.ndarray, next_id: int) -> bool:
+    """The landmark ring's invariants on a map's ids: every live id sits in
+    slot id % m, none is older than next_id - m, none is issued later."""
+    m = len(ids)
+    live = ids >= 0
+    return bool(np.array_equal(ids[live] % m, np.flatnonzero(live))
+                and (ids[live] >= next_id - m).all() and (ids[live] < next_id).all())
+
+
+def long_corridor_pass(torch, dev, fixture, seed: int, profile: bool = False) -> dict:
+    """One pass of the long-corridor configuration with in-loop BA over the
+    256 frames at RANSAC seed `seed`, counts zeroed before and read after;
+    returns its summary. With `profile`, the chunks of LONG_SYNC_CHUNKS count
+    their host syncs and chunk LONG_PROFILE_CHUNK runs under the profiler
+    (its busy share)."""
+    from visualodometry_tpu_torch.ba.inloop import init_window
+    from visualodometry_tpu_torch.core import init_state, make_chunked_pipeline_fn
+    from visualodometry_tpu_torch.data.synthetic import segment_ate
+    from visualodometry_tpu_torch.eval import ate_rmse
+
+    u8, gt, K, blank = fixture
+    n = len(u8)
+    cfg = long_corridor_config().replace(seed=seed)
+    chunks = [torch.as_tensor(u8[i : i + CHUNK]).to(dev) for i in range(0, n, CHUNK)]
+    run = make_chunked_pipeline_fn(cfg, K, device=dev, enable_ba=True)
+    carry = (init_state(cfg, desc_dim=128, device=dev), init_window(cfg, device=dev))
+    outs, syncs, busy = [], [], None
+
+    def run_chunk(c):
+        nonlocal carry
+        carry, out = run(carry, c)
+        outs.append(out)
+
+    zero_launches()
+    t0 = time.perf_counter()
+    for k, c in enumerate(chunks):
+        if profile and k == LONG_PROFILE_CHUNK:
+            busy = busy_share(torch, lambda: run_chunk(c))
+        elif profile and k in LONG_SYNC_CHUNKS:
+            syncs.append(count_syncs(torch, lambda: run_chunk(c))[1])
+        else:
+            run_chunk(c)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, routes = read_launches(), read_routes()
+
+    T = torch.cat([o.T_wc for o in outs]).cpu().numpy()
+    est = T[:, :3, 3]
+    resets = torch.cat([o.did_reset for o in outs]).cpu().numpy()
+    inited = torch.cat([o.initialized for o in outs]).cpu().numpy()
+    kf = int(sum(int(o.is_keyframe.sum()) for o in outs))
+    reset_frames = np.flatnonzero(resets)
+    n_pre = (blank[0] // CHUNK) * CHUNK  # whole chunks before the blackout
+    segs = segment_ate(est, gt, resets)
+    # (start, end, ATE) of the segment from frame 0 and of the last one; a
+    # NaN ATE where there is no such segment fails every check on it
+    pre = next((sg for sg in segs if sg[0] == 0), (0, 0, float("nan")))
+    final = segs[-1] if segs else (n, n, float("nan"))
+    ids = carry[0].map.ids.cpu().numpy()
+    next_id = int(carry[0].map.next_id)
+    return dict(
+        seed=seed, frames=n, seconds=dt, finite=bool(np.isfinite(T).all()),
+        reset_frames=reset_frames.tolist(), pre_blackout_resets=int(resets[:n_pre].sum()),
+        initialized_at_end=bool(inited[-1]), keyframes=kf,
+        segments=[(a, b, round(e, 4)) for a, b, e in segs], segment_pre=pre, segment_final=final,
+        pre_gross=SEED_GROSS_SHARE * path_length(gt[: pre[1]]),
+        final_gross=SEED_GROSS_SHARE * path_length(gt[final[0] : final[1]]),
+        pre_blackout_ate=float(ate_rmse(est[8:n_pre], gt[8:n_pre], align="sim3")),
+        next_id=next_id, capacity=len(ids), ring_holds=ring_holds(ids, next_id),
+        ba_solves=run.ba.solves, launches=launches, routes=routes,
+        syncs_per_frame=float(np.mean(syncs)) / CHUNK if syncs else None,
+        busy_ms=busy[0] if busy else None, busy_wall_ms=busy[1] if busy else None,
+    )
+
+
+def check_long_corridor_pass(s: dict, blank, launches_want: dict):
+    """The JAX long-corridor contract's per-run checks on one pass."""
+    what = f"long corridor, seed {s['seed']}"
+    rf = s["reset_frames"]
+    check(s["finite"], f"{what}: non-finite poses")
+    check(len(rf) >= 1 and blank[0] <= rf[0] <= blank[1],
+          f"{what}: the first reset {rf[:1]} is not in the blackout {blank}")
+    check(rf[-1] <= blank[1] + LONG_EXPLAINED,
+          f"{what}: a reset at {rf[-1]}, after the recovery window")
+    check(s["pre_blackout_resets"] == 0, f"{what}: a reset before the blackout")
+    check(s["initialized_at_end"], f"{what}: not tracking on the last frame")
+    check(s["keyframes"] > LONG_MIN_KEYFRAMES, f"{what}: {s['keyframes']} keyframes")
+    final, pre = s["segment_final"], s["segment_pre"]
+    check(final[1] == s["frames"] and final[1] - final[0] >= LONG_MIN_FINAL,
+          f"{what}: the final segment {final} is short")
+    check(pre[2] <= s["pre_gross"], f"{what}: pre-blackout segment ATE {pre[2]:.3f} m > "
+          f"{s['pre_gross']:.3f} m")
+    check(final[2] <= s["final_gross"], f"{what}: final segment ATE {final[2]:.3f} m > "
+          f"{s['final_gross']:.3f} m")
+    check(s["pre_blackout_ate"] <= LONG_PRE_MAX * LONG_REF_PRE,
+          f"{what}: pre-blackout ATE {s['pre_blackout_ate']:.3f} m > {LONG_PRE_MAX} x "
+          f"{LONG_REF_PRE} m")
+    check(s["next_id"] > s["capacity"], f"{what}: the ring did not wrap ({s['next_id']} ids "
+          f"issued into {s['capacity']} slots)")
+    check(s["ring_holds"], f"{what}: a live landmark id is out of its slot or its age")
+    check(s["ba_solves"] >= 1, f"{what}: BA never ran")
+    check(s["launches"] == launches_want, f"{what}: launched {s['launches']}, not "
+          f"{launches_want}")
+    check(s["routes"]["scalar"] == 0, f"{what}: a K2 launch took the scalar loop")
+
+
+def phase_long_corridor(torch, dev, card, fixture) -> dict:
+    """Phase 25: the long corridor at each seed of LONG_SEEDS, each pass held
+    at the contract's per-run checks, the seed set at the drift limits;
+    returns the first pass's launches."""
+    u8, gt, K, blank, crc, render_s = fixture
+    log(f"long-corridor fixture: {u8.shape} uint8 rendered in {render_s:.1f} s in another "
+        f"process, blackout {blank}, CRC32 {crc} (the JAX reference's {LONG_FRAMES_CRC32})")
+    check(crc == LONG_FRAMES_CRC32, "the long-corridor frames are not the reference's frames")
+    frames, shapes = path_patch_launches()["long_corridor"]
+    check(frames == len(u8), "long-corridor frame count")
+    # K1 once a frame (every frame is matched against the keyframe slots),
+    # K2 once a frame for each octave on the patch route
+    want = {"match_top2": len(u8), "extract_patches": len(shapes) * len(u8), "blur_stack": 0}
+    passes = []
+    for i, seed in enumerate(LONG_SEEDS):
+        s = long_corridor_pass(torch, dev, (u8, gt, K, blank), seed, profile=i == 0)
+        log(f"long corridor, seed {seed}: {s['frames']} frames, resets at {s['reset_frames']} "
+            f"({s['pre_blackout_resets']} before the blackout), tracking at the end "
+            f"{s['initialized_at_end']}, keyframes {s['keyframes']}, segments {s['segments']}, "
+            f"pre-blackout ATE (8:144) {s['pre_blackout_ate']:.4f} m, next_id {s['next_id']} "
+            f"into {s['capacity']} slots, ring invariants {s['ring_holds']}, BA solves "
+            f"{s['ba_solves']}, launches {s['launches']} (K2 routes {s['routes']}), "
+            f"{s['frames'] / s['seconds']:.3f} frames/s ({s['seconds']:.1f} s)"
+            + (f"; host syncs a tracking frame {s['syncs_per_frame']:.2f} (chunks "
+               f"{list(LONG_SYNC_CHUNKS)}), device busy "
+               f"{s['busy_ms']:.1f} of {s['busy_wall_ms']:.1f} ms wall in chunk "
+               f"{LONG_PROFILE_CHUNK} ({s['busy_ms'] / s['busy_wall_ms']:.1%}; the timing of "
+               f"this pass includes the profiling)" if i == 0 else "") + f"; on {card}")
+        check_long_corridor_pass(s, blank, want)
+        passes.append(s)
+    pre_ate = [s["pre_blackout_ate"] for s in passes]
+    pre_seg = [s["segment_pre"][2] for s in passes]
+    final_seg = [s["segment_final"][2] for s in passes]
+    lim_pre_seg = SEED_MEDIAN_FACTOR * float(np.median(LONG_JAX_CPU_PRE_SEGMENT))
+    lim_final_seg = SEED_MEDIAN_FACTOR * float(np.median(LONG_JAX_CPU_FINAL_SEGMENT))
+    log(f"long corridor at seeds {list(LONG_SEEDS)}: pre-blackout ATE {pre_ate} m, median "
+        f"{np.median(pre_ate):.4f} (limit {LONG_PRE_MEDIAN} x {LONG_REF_PRE} = "
+        f"{LONG_PRE_MEDIAN * LONG_REF_PRE:.4f}), max {max(pre_ate):.4f} (limit "
+        f"{LONG_PRE_MAX * LONG_REF_PRE:.4f}); pre-blackout segment {pre_seg}, median "
+        f"{np.median(pre_seg):.4f} (limit {lim_pre_seg:.4f}); final segment {final_seg}, "
+        f"median {np.median(final_seg):.4f} (limit {lim_final_seg:.4f}); the JAX contract's "
+        f"one-seed bounds met at {sum(a < 1.0 for a in final_seg)} seeds (final < 1.0 m) and "
+        f"{sum(a <= max(2.5 * LONG_REF_PRE, 1.0) for a in pre_seg)} (first <= 2.5 x ref_pre)")
+    check(np.median(pre_ate) <= LONG_PRE_MEDIAN * LONG_REF_PRE,
+          "long corridor: median pre-blackout ATE over the seed set")
+    check(np.median(pre_seg) <= lim_pre_seg, "long corridor: median pre-blackout segment ATE")
+    check(np.median(final_seg) <= lim_final_seg, "long corridor: median final segment ATE")
+    return passes[0]["launches"]
+
+
+def repeatability(gt_correspondence, scene, depth0, kps_a, kps_b, tol: float = 3.0) -> float:
+    """tests/test_sift_vs_opencv.py's repeatability: the share of frame-0
+    keypoints whose true position in frame 1 lies within `tol` px of a
+    frame-1 keypoint."""
+    uvb, ok = gt_correspondence(scene, 0, 1, kps_a, depth0)
+    d = np.linalg.norm(uvb[ok][:, None, :] - kps_b[None, :, :], axis=-1).min(axis=1)
+    return float((d < tol).mean())
+
+
+def ratio_matches(d0: np.ndarray, d1: np.ndarray, ratio: float = 0.75):
+    """Lowe-ratio matches by an exact nearest-two search in float64 on the
+    host, in place of OpenCV's brute-force matcher (the scoring must not
+    run the code it scores): (query indices, train indices)."""
+    a, b = d0.astype(np.float64), d1.astype(np.float64)
+    d2 = np.maximum((a * a).sum(1)[:, None] + (b * b).sum(1)[None, :] - 2.0 * a @ b.T, 0.0)
+    two = np.argsort(d2, axis=1, kind="stable")[:, :2]
+    best, second = np.sqrt(np.take_along_axis(d2, two, axis=1)).T
+    keep = best < ratio * second
+    return np.flatnonzero(keep), two[keep, 0]
+
+
+def match_precision(gt_correspondence, scene, depth0, k0, d0, k1, d1, ratio: float = 0.75,
+                    tol: float = 4.0, matches=ratio_matches):
+    """tests/test_sift_vs_opencv.py's precision: the share of ratio matches
+    whose frame-1 keypoint lies within `tol` px of the true position, and
+    their count."""
+    q, t = matches(d0, d1, ratio)
+    uvb, ok = gt_correspondence(scene, 0, 1, k0[q], depth0)
+    good = (np.linalg.norm(uvb - k1[t], axis=1) < tol) & ok
+    return float(good.sum() / max(ok.sum(), 1)), int(good.sum())
+
+
+def render_sift_pair():
+    """tests/test_sift_vs_opencv.py's textured pair: (scene, frame 0, its
+    depth, frame 1) as float32, and the CRC32s of the frames and the depth."""
+    from visualodometry_tpu_torch.data.synthetic import make_scene, render_textured_image
+
+    scene = make_scene(np.random.default_rng(3), num_frames=4, speed=1.0, turn_rate=0.003,
+                       image_size=SIFT_PAIR_SIZE)
+    img0, depth0 = render_textured_image(scene, 0, with_depth=True)
+    img1 = render_textured_image(scene, 1)
+    crc = zlib.crc32(np.ascontiguousarray(np.stack([img0, img1]).astype(np.float32)).tobytes())
+    crc_depth = zlib.crc32(np.ascontiguousarray(depth0.astype(np.float32)).tobytes())
+    return scene, img0, depth0, img1, crc, crc_depth
+
+
+def phase_sift_opencv(torch, dev, card, pair) -> dict:
+    """Phase 26: the port's SIFT on the card over tests/test_sift_vs_opencv.py's
+    pair, scored on the host against the bars cv2 set on the CPU."""
+    from visualodometry_tpu_torch.data.synthetic import gt_correspondence
+    from visualodometry_tpu_torch.frontend.sift import extract_sift
+
+    scene, img0, depth0, img1, crc, crc_depth = pair
+    check(crc == SIFT_PAIR_CRC32 and crc_depth == SIFT_PAIR_DEPTH_CRC32,
+          f"the OpenCV pair is not the measured pair: CRC32 {crc}, {crc_depth}")
+    cfg = sift_pair_config()
+    frames, shapes = path_patch_launches()["sift_opencv"]
+    zero_launches()
+    feats = [extract_sift(torch.as_tensor(img).to(dev), cfg, device=dev) for img in (img0, img1)]
+    torch.cuda.synchronize()
+    launches, routes = read_launches(), read_routes()
+    ours = []
+    for f in feats:
+        v = f.valid.cpu().numpy()
+        ours.append((f.kps.cpu().numpy()[v], f.desc.cpu().numpy()[v]))
+    rep = repeatability(gt_correspondence, scene, depth0, ours[0][0], ours[1][0])
+    prec, n_good = match_precision(gt_correspondence, scene, depth0, *ours[0], *ours[1])
+    want = {"match_top2": 0, "extract_patches": frames * len(shapes), "blur_stack": 0}
+    log(f"SIFT against OpenCV, {SIFT_PAIR_SIZE[0]}x{SIFT_PAIR_SIZE[1]} pair (CRC32 {crc}, depth "
+        f"{crc_depth}): {len(ours[0][0])} and {len(ours[1][0])} keypoints, repeatability@3px "
+        f"{rep:.4f} (cv2 {SIFT_CV2_REPEATABILITY}), precision@4px {prec:.4f} with {n_good} "
+        f"correct (cv2 {SIFT_CV2_PRECISION}), launches {launches}, K2 routes {routes}; on {card}")
+    check(all(len(k) > 200 for k, _ in ours), "fewer than 200 keypoints in a frame")
+    check(rep > 0.5 and rep >= 0.9 * SIFT_CV2_REPEATABILITY,
+          f"repeatability {rep:.4f} against cv2's {SIFT_CV2_REPEATABILITY}")
+    check(prec > 0.9 and prec >= SIFT_CV2_PRECISION - 0.05 and n_good > 100,
+          f"match precision {prec:.4f} ({n_good} correct) against cv2's {SIFT_CV2_PRECISION}")
+    check(launches == want, f"SIFT pair launched {launches}, not {want}")
+    check(routes["tma"] == launches["extract_patches"], f"a K2 launch took the scalar loop: {routes}")
+    return dict(repeatability=rep, precision=prec, correct=n_good, launches=launches)
+
+
+def render_long_corridor_fixture():
+    """The long-corridor frames, (u8, gt, K, blank, CRC32, seconds)."""
+    from visualodometry_tpu_torch.data.synthetic import make_long_corridor_fixture
+
+    t0 = time.perf_counter()
+    u8, gt, K, blank = make_long_corridor_fixture(num_frames=LONG_FRAMES, image_size=LONG_SIZE)
+    return u8, gt, K, blank, zlib.crc32(np.ascontiguousarray(u8).tobytes()), \
+        time.perf_counter() - t0
+
+
 def render_gates_fixture():
     """The KITTI-gates frames, (u8, gt, K); main renders them in a spawned
     process while the earlier phases run."""
@@ -2415,20 +2946,25 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    # the fixtures of the later phases are rendered in another process, in
+    # the order the phases need them, while the earlier phases run
     with ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as render:
-        return run_phases(torch, dev, smi, render.submit(render_gates_fixture), t_start)
+        fixtures = {name: render.submit(fn) for name, fn in (
+            ("drill", render_drill_fixture), ("sift_pair", render_sift_pair),
+            ("gates", render_gates_fixture), ("long_corridor", render_long_corridor_fixture))}
+        return run_phases(torch, dev, smi, fixtures, t_start)
 
 
-def run_phases(torch, dev, smi, gates_fixture, t_start: float) -> int:
+def run_phases(torch, dev, smi, fixtures: dict, t_start: float) -> int:
     """Every phase after the build, in order; the kernel table and the
-    device line last."""
+    device line last. `fixtures` holds futures of the rendered frames."""
     tmp = os.environ.get("TMPDIR", "/tmp")
     kernels = [timed("match", phase_match, torch, dev, smi),
                timed("patches", phase_patches, torch, dev),
                timed("blur", phase_blur, torch, dev, smi)]
     kernels[0]["lanes"] = timed("match_lanes", phase_match_lanes, torch, dev, smi)
     launches, scene, u8, main_summary = timed("main_path", phase_main_path, torch, dev, smi)
-    timed("cli", phase_cli, torch, dev, smi, scene, u8, tmp)
+    timed("cli", phase_cli, torch, dev, smi, scene, u8, tmp, fixtures["drill"])
     timed("match_real", phase_match_real, torch, dev, u8)
     timed("engine", phase_engine, torch, dev, scene, u8, tmp)
     timed("superpoint", phase_learned, torch, dev, smi, scene, u8, "superpoint")
@@ -2437,13 +2973,21 @@ def run_phases(torch, dev, smi, gates_fixture, t_start: float) -> int:
     kernels[1]["klt"] = timed("patches_klt", phase_patches_klt, torch, dev, smi, u8)
     klt_launches = timed("klt", phase_klt, torch, dev, smi, scene, u8)
     timed("klt_paths", phase_klt_paths, torch, dev, smi, u8)
+    kernels[1]["sift_opencv"]["launches"] = timed(
+        "sift_opencv", phase_sift_opencv, torch, dev, smi,
+        fixtures["sift_pair"].result(timeout=DIST_TIMEOUT_S))["launches"]["extract_patches"]
     timed("ba_solve", phase_ba_solve, torch, dev, smi)
     timed("distributed_ba", phase_distributed_ba, torch, dev, smi)
     timed("main_ba", phase_main_ba, torch, dev, smi, scene, u8)
     timed("engine_ba", phase_engine_ba, torch, dev, scene, u8, tmp)
     timed("multiseq", phase_multiseq, torch, dev, smi, scene, u8, main_summary)
     torch.cuda.empty_cache()
-    launches_k3 = timed("gates", phase_gates_all, torch, dev, smi, gates_fixture)
+    launches_k3 = timed("gates", phase_gates_all, torch, dev, smi, fixtures["gates"])
+    torch.cuda.empty_cache()
+    long_launches = timed("long_corridor", phase_long_corridor, torch, dev, smi,
+                          fixtures["long_corridor"].result(timeout=DIST_TIMEOUT_S))
+    kernels[0]["long_corridor"]["launches"] = long_launches["match_top2"]
+    kernels[1]["long_corridor"]["launches"] = long_launches["extract_patches"]
     torch.cuda.empty_cache()
     pool, data_h, data_vo = timed("train_data", phase_train_data, torch, dev, smi,
                                   kernels[1]["train"])
@@ -2461,7 +3005,8 @@ def run_phases(torch, dev, smi, gates_fixture, t_start: float) -> int:
             f"launches {k['launches']} on {smi}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_peak",
-            "bound_f32_cores_ms", "at_256d", "klt", "lanes", "train")
+            "bound_f32_cores_ms", "at_256d", "klt", "lanes", "train", "long_corridor",
+            "sift_opencv")
     log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{key: k[key] for key in keys if key in k} for k in kernels]}))
     log(json.dumps({"ok": True, "device": {

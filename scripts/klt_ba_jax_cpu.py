@@ -17,11 +17,12 @@ chunks of 8) through the JAX package, once per stage:
 Prints one JSON line per stage: resets, keyframes (BA) or promoted
 landmarks (KLT), tracking on the last frame, sim3 ATE over frames 8
 onward, and for BA the chunks whose window was full (the solve ran).
-`--seed` sets cfg.seed, the RANSAC key (0 by default, as the bench).
+`--seeds` sets cfg.seed, the RANSAC key, one run (and one line) a
+seed of a stage (0 by default, as the bench).
 Tracking outcomes only: its times are CPU times and mean nothing for the
 port.
 
-    JAX_PLATFORMS=cpu python scripts/klt_ba_jax_cpu.py [--stage klt|ba] [--seed N]
+    JAX_PLATFORMS=cpu python scripts/klt_ba_jax_cpu.py [--stage klt|ba] [--seeds 0 1 ...]
 """
 
 from __future__ import annotations
@@ -87,17 +88,45 @@ def run_ba(cfg, u8, K, chunk):
                   "ba_chunks": sum(c >= cfg.ba_window for c in counts)}
 
 
+def print_stage(name, seed, outs, extra, gt, n):
+    import jax
+
+    from visualodometry_tpu.eval import ate_rmse
+
+    est = np.concatenate([o.T_wc[:, :3, 3] for o in outs])
+    inited = np.concatenate([o.initialized for o in outs])
+    line = {
+        "stage": name,
+        "seed": seed,
+        "backend": jax.default_backend(),
+        "frames": n,
+        "resets": int(sum(o.did_reset.sum() for o in outs)),
+        "tracking": bool(inited[-1]),
+        "init_frame": int(np.argmax(inited)) if inited.any() else None,
+        "ate_sim3_m": float(ate_rmse(est[8:], gt[8:n], align="sim3")),
+        **extra,
+    }
+    if name == "klt":
+        tracked = np.concatenate([o.num_tracked for o in outs])
+        line.update(
+            promoted=int(sum(o.num_promoted.sum() for o in outs)),
+            median_tracked=float(np.median(tracked[1:])),
+            median_landmarks=float(np.median(
+                np.concatenate([o.num_landmarks for o in outs])[inited])),
+        )
+    else:
+        line["keyframes"] = int(sum(o.is_keyframe.sum() for o in outs))
+    print(json.dumps(line), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--stage", choices=("klt", "ba"), action="append")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seeds", "--seed", dest="seeds", type=int, nargs="+", default=[0])
     args = ap.parse_args()
-
-    import jax
 
     from bench import _build_cfg
     from visualodometry_tpu.data.synthetic import make_scene, render_textured_image
-    from visualodometry_tpu.eval import ate_rmse
 
     n, chunk = 32, 8
     scene = make_scene(np.random.default_rng(7), num_frames=n, speed=1.2,
@@ -105,36 +134,14 @@ def main() -> int:
     imgs = np.stack([render_textured_image(scene, f) for f in range(n)])
     u8 = (np.clip(imgs, 0, 1) * 255 + 0.5).astype(np.uint8)  # as bench.py's fixture
     stages = {
-        "klt": (run_klt, _build_cfg().replace(seed=args.seed)),
-        "ba": (run_ba, _build_cfg().replace(matcher_backend="jnp", seed=args.seed)),
+        "klt": (run_klt, _build_cfg()),
+        "ba": (run_ba, _build_cfg().replace(matcher_backend="jnp")),
     }
     for name in args.stage or list(stages):
         fn, cfg = stages[name]
-        outs, extra = fn(cfg, u8, scene.K, chunk)
-        est = np.concatenate([o.T_wc[:, :3, 3] for o in outs])
-        inited = np.concatenate([o.initialized for o in outs])
-        line = {
-            "stage": name,
-            "seed": args.seed,
-            "backend": jax.default_backend(),
-            "frames": n,
-            "resets": int(sum(o.did_reset.sum() for o in outs)),
-            "tracking": bool(inited[-1]),
-            "init_frame": int(np.argmax(inited)) if inited.any() else None,
-            "ate_sim3_m": float(ate_rmse(est[8:], scene.gt_positions[8:n], align="sim3")),
-            **extra,
-        }
-        if name == "klt":
-            tracked = np.concatenate([o.num_tracked for o in outs])
-            line.update(
-                promoted=int(sum(o.num_promoted.sum() for o in outs)),
-                median_tracked=float(np.median(tracked[1:])),
-                median_landmarks=float(np.median(
-                    np.concatenate([o.num_landmarks for o in outs])[inited])),
-            )
-        else:
-            line["keyframes"] = int(sum(o.is_keyframe.sum() for o in outs))
-        print(json.dumps(line), flush=True)
+        for seed in args.seeds:
+            print_stage(name, seed, *fn(cfg.replace(seed=seed), u8, scene.K, chunk),
+                        scene.gt_positions, n)
     return 0
 
 

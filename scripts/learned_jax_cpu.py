@@ -16,11 +16,13 @@ measurements:
   which has no CPU mode outside interpret (the attention path does not
   call it).
 
-Prints one JSON line per stage: resets, keyframes, sim3 ATE over frames 8
-onward. Tracking outcomes only: its times are CPU times and mean nothing
-for the port.
+Prints one JSON line per stage and seed: resets, keyframes, sim3 ATE over
+frames 8 onward. `--seeds` sets the RANSAC key (`init_state`'s seed, which
+is all that cfg.seed sets; 0 by default), one run a seed on one compile.
+Tracking outcomes only: its times are CPU times and mean nothing for the
+port.
 
-    JAX_PLATFORMS=cpu python scripts/learned_jax_cpu.py [--stage superpoint|attention]
+    JAX_PLATFORMS=cpu python scripts/learned_jax_cpu.py [--stage superpoint|attention] [--seeds 0 1 ...]
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ sys.path.insert(0, ROOT)
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--stage", choices=("superpoint", "attention"), action="append")
+    ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     args = ap.parse_args()
 
     import jax
@@ -64,23 +67,25 @@ def main() -> int:
     for name in args.stage or list(stages):
         cfg, desc_dim = stages[name]
         run = make_chunked_pipeline_fn(cfg, scene.K)
-        state = init_state(cfg, desc_dim=desc_dim)
-        outs = []
-        t0 = time.perf_counter()
-        for i in range(0, n, chunk):
-            state, out = run(state, jnp.asarray(u8[i : i + chunk]))
-            outs.append(jax.tree.map(np.asarray, out))
-            print(f"{name} chunk {i // chunk}: {time.perf_counter() - t0:.0f} s",
-                  file=sys.stderr, flush=True)
-        est = np.concatenate([o.T_wc[:, :3, 3] for o in outs])
-        print(json.dumps({
-            "stage": name,
-            "backend": jax.default_backend(),
-            "frames": n,
-            "resets": int(sum(o.did_reset.sum() for o in outs)),
-            "keyframes": int(sum(o.is_keyframe.sum() for o in outs)),
-            "ate_sim3_m": float(ate_rmse(est[8:], scene.gt_positions[8:n], align="sim3")),
-        }), flush=True)
+        for seed in args.seeds:
+            state = init_state(cfg, desc_dim=desc_dim, seed=seed)
+            outs = []
+            t0 = time.perf_counter()
+            for i in range(0, n, chunk):
+                state, out = run(state, jnp.asarray(u8[i : i + chunk]))
+                outs.append(jax.tree.map(np.asarray, out))
+                print(f"{name} seed {seed} chunk {i // chunk}: {time.perf_counter() - t0:.0f} s",
+                      file=sys.stderr, flush=True)
+            est = np.concatenate([o.T_wc[:, :3, 3] for o in outs])
+            print(json.dumps({
+                "stage": name,
+                "seed": seed,
+                "backend": jax.default_backend(),
+                "frames": n,
+                "resets": int(sum(o.did_reset.sum() for o in outs)),
+                "keyframes": int(sum(o.is_keyframe.sum() for o in outs)),
+                "ate_sim3_m": float(ate_rmse(est[8:], scene.gt_positions[8:n], align="sim3")),
+            }), flush=True)
     return 0
 
 

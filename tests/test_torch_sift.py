@@ -77,32 +77,60 @@ def test_unported_pyramid_options_raise(kw):
 
 
 def _overlap(f_j, f_t):
-    """Fraction of JAX keypoints the port finds, and the descriptor dot
-    products on those shared keypoints."""
+    """Fraction of JAX keypoints the port finds (a port keypoint within 0.05
+    px), and the descriptor dot products on those: the best over the port
+    keypoints found there (with two orientation peaks, a position carries
+    two slots, one for each orientation)."""
     kj = np.asarray(f_j.kps)[np.asarray(f_j.valid)]
     dj = np.asarray(f_j.desc)[np.asarray(f_j.valid)]
     vt = f_t.valid.numpy()
     kt, dt = f_t.kps.numpy()[vt], f_t.desc.numpy()[vt]
-    dist = np.linalg.norm(kj[:, None] - kt[None], axis=-1)
-    nn = dist.argmin(1)
-    found = dist[np.arange(len(kj)), nn] < 0.05
-    dots = np.sum(dj[found] * dt[nn[found]], axis=-1)
+    near = np.linalg.norm(kj[:, None] - kt[None], axis=-1) < 0.05
+    found = near.any(axis=1)
+    dots = np.where(near, dj @ dt.T, -np.inf).max(axis=1)[found]
     return found.mean(), dots, len(kj), len(kt)
+
+
+# Bounds, just outside what was measured at these shapes (320 x 192, 512
+# slots, both frames, both sampling modes, one and two orientation peaks):
+# equal counts (138 and 137 keypoints with one peak, 161 and 158 with
+# two), every JAX keypoint found, every shared descriptor's dot >= 0.99984.
+# Two marginal DoG extrema may flip on another CPU's float order; a port
+# that drops 4% of its keypoints (5 of 138) fails the count and the overlap.
+MAX_COUNT_GAP = 2
+MIN_OVERLAP = 0.985
+MIN_DOT = 0.999
+
+
+def _hold_extraction(frames, mode, peaks):
+    jc, tc = _cfgs(sift_sampling=mode, sift_orientation_peaks=peaks)
+    f_j = jax.tree.map(np.asarray, jsift.extract_sift(jnp.asarray(frames[0]), jc))
+    f_t = tsift.extract_sift(torch.as_tensor(frames[0]), tc, device="cpu")
+    frac, dots, n_j, n_t = _overlap(f_j, f_t)
+    assert n_j > 100 and abs(n_j - n_t) <= MAX_COUNT_GAP, (n_j, n_t)
+    assert frac >= MIN_OVERLAP, frac
+    # a flipped orientation bin changes a descriptor wholesale
+    assert dots.min() >= MIN_DOT, dots.min()
+    return n_j
 
 
 @pytest.mark.parametrize("mode", ["gather", "patch"])
 def test_extraction_matches_jax(frames, mode):
     """mode="patch" runs the JAX K2 kernel in interpret mode (sift.py:826)
     and the port's K2 plain version."""
-    jc, tc = _cfgs(sift_sampling=mode)
-    f_j = jax.tree.map(np.asarray, jsift.extract_sift(jnp.asarray(frames[0]), jc))
-    f_t = tsift.extract_sift(torch.as_tensor(frames[0]), tc, device="cpu")
-    frac, dots, n_j, n_t = _overlap(f_j, f_t)
-    assert n_j > 100 and abs(n_j - n_t) <= 0.05 * n_j
-    assert frac >= 0.95, frac
-    # a flipped orientation bin changes a descriptor wholesale: require
-    # near-identity on almost all shared keypoints
-    assert np.mean(dots > 0.99) >= 0.95, np.mean(dots > 0.99)
+    _hold_extraction(frames, mode, peaks=1)
+
+
+@pytest.mark.parametrize("mode", ["gather", "patch"])
+def test_extraction_matches_jax_two_peaks(frames, mode):
+    """sift_orientation_peaks=2 (the long-corridor configuration): each
+    octave's keypoint budget halves, and a keypoint whose histogram has a
+    second peak within 80% of the first fills a second slot with that
+    orientation. More keypoints than with one peak, on the same budget."""
+    n_two = _hold_extraction(frames, mode, peaks=2)
+    _, tc = _cfgs(sift_sampling=mode)
+    one = int(tsift.extract_sift(torch.as_tensor(frames[0]), tc, device="cpu").valid.sum())
+    assert n_two > one
 
 
 def test_patch_path_equals_gather_path(frames):
@@ -115,6 +143,17 @@ def test_patch_path_equals_gather_path(frames):
     assert bool(v.any())
     assert torch.equal(v, f_p.valid)
     assert torch.equal(f_g.kps, f_p.kps)
+    torch.testing.assert_close(f_p.desc[v], f_g.desc[v], rtol=0, atol=1e-6)
+
+
+def test_patch_path_equals_gather_path_two_peaks(frames):
+    _, tg = _cfgs(sift_sampling="gather", sift_orientation_peaks=2)
+    _, tpatch = _cfgs(sift_sampling="patch", sift_orientation_peaks=2)
+    img = torch.as_tensor(frames[1])
+    f_g = tsift.extract_sift(img, tg, device="cpu")
+    f_p = tsift.extract_sift(img, tpatch, device="cpu")
+    v = f_g.valid
+    assert torch.equal(v, f_p.valid) and torch.equal(f_g.kps, f_p.kps)
     torch.testing.assert_close(f_p.desc[v], f_g.desc[v], rtol=0, atol=1e-6)
 
 

@@ -2,9 +2,12 @@
 the host engine and checkpoints."""
 
 from visualodometry_tpu_torch.core.state import (  # noqa: F401
+    Keyframe,
+    MapState,
     StepOutput,
     VOState,
     init_state,
+    landmark_lookup,
     state_from_numpy,
     state_to_numpy,
 )

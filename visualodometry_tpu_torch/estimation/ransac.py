@@ -31,6 +31,12 @@ def sample_valid_indices(
     return order[draws % count]
 
 
+def best_hypothesis(inlier_counts: torch.Tensor) -> torch.Tensor:
+    """Index of the hypothesis with the most inliers (ties: the lowest
+    index, as `jnp.argmax`; `torch.argmax` returns the first maximum)."""
+    return torch.argmax(inlier_counts)
+
+
 def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """x[i] for a 0-d index tensor, without a host synchronisation.
 

@@ -300,6 +300,16 @@ def _make_patch_sampler(patches, y0, x0, H: int, W: int):
     return sample
 
 
+def compute_orientations(gauss, kps: OctaveKeypoints, grad_packed=None, sampler=None):
+    """Dominant gradient orientation per keypoint (radians), batched: the
+    smoothed 36-bin histogram's highest bin, parabolically interpolated.
+    `sampler` (from _make_patch_sampler) reads the taps from K2's windows;
+    the result is the same."""
+    hist = orientation_histogram(gauss, kps, grad_packed, sampler)
+    theta1, _ = _hist_peak_angle(hist, torch.argmax(hist, dim=-1))
+    return theta1
+
+
 def orientation_histogram(gauss, kps: OctaveKeypoints, grad_packed=None, sampler=None):
     """Smoothed 36-bin gradient-orientation histogram per keypoint."""
     S_levels, H, W = gauss.shape

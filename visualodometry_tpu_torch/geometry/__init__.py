@@ -4,6 +4,7 @@ from visualodometry_tpu_torch.geometry.so3 import (  # noqa: F401
     rotation_angle,
     so3_exp,
     so3_hat,
+    so3_log,
 )
 from visualodometry_tpu_torch.geometry.se3 import (  # noqa: F401
     make_T,

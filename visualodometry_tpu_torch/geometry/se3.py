@@ -28,6 +28,11 @@ def se3_inverse(T: torch.Tensor) -> torch.Tensor:
     return make_T(Rt, t_inv)
 
 
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) to (..., N, 3) points -> (..., N, 3)."""
+    return torch.einsum("...ij,...nj->...ni", T[..., :3, :3], pts) + T[..., None, :3, 3]
+
+
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     """se(3) twist (..., 6) [rho, phi] -> (..., 4, 4) transform."""
     rho, phi = xi[..., :3], xi[..., 3:]

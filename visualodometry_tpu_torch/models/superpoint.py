@@ -26,6 +26,8 @@ and in the order of slots, never in the set of scores above a tie.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -134,6 +136,11 @@ class SuperPointDense(_Encoder):
         s = torch.relu(_conv(self.scoreMixA, torch.cat(feats, dim=1)))
         score = _conv(self.scoreMixB, s)[:, 0]
         return score, self.describe(scales[3])
+
+
+class SuperPointOutput(NamedTuple):
+    heatmap: torch.Tensor  # (H, W) keypoint probability
+    coarse_desc: torch.Tensor  # (H/8, W/8, 256) normalized
 
 
 def is_dense_params(params) -> bool:

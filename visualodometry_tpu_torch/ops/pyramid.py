@@ -50,6 +50,12 @@ def _full_kernel_np(sigma: float, radius: int) -> np.ndarray:
     return (g / g.sum()).astype(np.float32)
 
 
+def gaussian_kernel_1d(sigma: float, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Odd-length 1D Gaussian, radius ceil(3 sigma) (<0.3% truncated mass)."""
+    radius = max(1, int(math.ceil(3.0 * sigma)))
+    return torch.as_tensor(_full_kernel_np(sigma, radius), dtype=dtype, device=device)
+
+
 def _band_matrix_np(n: int, kern: np.ndarray) -> np.ndarray:
     """(n, n) matrix B with (row_in @ B) == edge-padded 1D conv of row_in."""
     r = (len(kern) - 1) // 2
