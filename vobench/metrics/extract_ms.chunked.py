@@ -1,0 +1,8 @@
+"""Extraction's span per frame (lane-frames with lanes), in ms: the
+harness's span around `run_chunk.extract` or the batched extractor, each
+ending in a synchronise, over the window outside the profiled stretch."""
+
+
+def read(t):
+    s = t["spans"].get("extract")
+    return None if not s or not s["frames"] else 1e3 * s["seconds"] / s["frames"]
