@@ -27,6 +27,7 @@ from visualodometry_tpu_torch.core.state import StepOutput, VOState, init_state
 from visualodometry_tpu_torch.core.step import make_step_fn
 from visualodometry_tpu_torch.frontend.interface import Features
 from visualodometry_tpu_torch.geometry.se3 import se3_inverse
+from visualodometry_tpu_torch.utils.profiling import count, span
 
 
 @dataclass
@@ -95,7 +96,9 @@ class VOEngine:
         else:
             feats = Features(*(torch.as_tensor(x).to(self.device) for x in feats))
         self.state, out = self._step(self.state, feats)
-        out_host = StepOutput(*(x.cpu().numpy() for x in out))
+        with span("readback"):  # one copy, and so one wait, a field
+            out_host = StepOutput(*(x.cpu().numpy() for x in out))
+        count("sync.readback", len(out))
 
         if bool(out_host.did_reset):
             # the reference resets the trajectory on failure

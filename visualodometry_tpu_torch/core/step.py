@@ -13,6 +13,10 @@ branch are read back to the host and the branch is a Python `if`:
 
 So a tracking frame costs two host synchronisations. Everything else
 (matching, RANSAC, refinement, map updates) is queued without waiting.
+While the recorder in utils/profiling.py is on, `make_step_fn`'s step
+records the spans `step.match`, `step.read_gates`, `step.solve`,
+`step.read_flags` and `step.finish` inside `step`, and counts its reads
+as `sync.gates` and `sync.flags`.
 `StepParts` holds the step in the pieces between those reads, so that the
 step over several sequences (parallel/multiseq.py) can make each read once
 for all of them.
@@ -62,6 +66,7 @@ from visualodometry_tpu_torch.models.attention_matcher import (
     normalize_kps,
 )
 from visualodometry_tpu_torch.models.convert import attention_state_dict_from_flax
+from visualodometry_tpu_torch.utils.profiling import count, span
 
 Sampler = Callable[[torch.Tensor, int, int], torch.Tensor]
 
@@ -508,11 +513,21 @@ def make_step_fn(
         sampler = generator_sampler(gen)
 
     def step(state: VOState, feats: Features) -> tuple[VOState, StepOutput]:
-        front = parts.front(state, feats, match_fn(state.keyframe, feats))
-        # the one host read that picks the frame's branch
-        q = parts.queue(state, feats, front, front.gates.tolist(), sampler)
-        while q.flags is not None:  # a solver's flags: one more read each
-            q = q.finish(q.flags.tolist())
+        with span("step", frame=True):
+            with span("step.match"):
+                front = parts.front(state, feats, match_fn(state.keyframe, feats))
+            # the one host read that picks the frame's branch
+            with span("step.read_gates"):
+                gates = front.gates.tolist()
+            count("sync.gates")
+            with span("step.solve"):
+                q = parts.queue(state, feats, front, gates, sampler)
+            while q.flags is not None:  # a solver's flags: one more read each
+                with span("step.read_flags"):
+                    flags = q.flags.tolist()
+                count("sync.flags")
+                with span("step.finish"):
+                    q = q.finish(flags)
         return q.state, q.out
 
     step.generator = gen

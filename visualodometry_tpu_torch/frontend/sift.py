@@ -33,6 +33,7 @@ from visualodometry_tpu_torch.config import VOConfig
 from visualodometry_tpu_torch.frontend.interface import Features
 from visualodometry_tpu_torch.ops.patches import extract_patches
 from visualodometry_tpu_torch.ops.pyramid import build_pyramid
+from visualodometry_tpu_torch.utils.profiling import span
 
 _NUM_BINS = 36
 _DESC_GRID = 4  # 4x4 spatial bins
@@ -589,9 +590,10 @@ def extract_sift(
     Runs on `device` (CUDA unless "cpu" is asked for). `pyramid_impl` is
     `build_pyramid`'s `impl` argument, handed on unchanged.
     """
-    img = img.to(resolve_device(device))
-    gauss, dogs = _pyramid(img, cfg, pyramid_impl)
-    return extract_sift_from_pyramid((gauss, dogs), cfg)
+    with span("extract"):
+        img = img.to(resolve_device(device))
+        gauss, dogs = _pyramid(img, cfg, pyramid_impl)
+        return extract_sift_from_pyramid((gauss, dogs), cfg)
 
 
 def make_batched_extract_fn(cfg: VOConfig, device=None, pyramid_impl: str = "auto"):
@@ -604,12 +606,13 @@ def make_batched_extract_fn(cfg: VOConfig, device=None, pyramid_impl: str = "aut
     dev = resolve_device(device)
 
     def extract_batch(imgs: torch.Tensor) -> list[Features]:
-        gauss, dogs = _pyramid(imgs.to(dev), cfg, pyramid_impl)
-        return [
-            extract_sift_from_pyramid(
-                ([g[i] for g in gauss], [d[i] for d in dogs]), cfg
-            )
-            for i in range(imgs.shape[0])
-        ]
+        with span("extract"):
+            gauss, dogs = _pyramid(imgs.to(dev), cfg, pyramid_impl)
+            return [
+                extract_sift_from_pyramid(
+                    ([g[i] for g in gauss], [d[i] for d in dogs]), cfg
+                )
+                for i in range(imgs.shape[0])
+            ]
 
     return extract_batch

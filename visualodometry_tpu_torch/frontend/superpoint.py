@@ -32,6 +32,7 @@ from visualodometry_tpu_torch.models.superpoint import (
     select_keypoints,
     superpoint_heads,
 )
+from visualodometry_tpu_torch.utils.profiling import span
 
 
 def _pad_to_multiple(img: torch.Tensor, m: int = 8) -> torch.Tensor:
@@ -105,15 +106,16 @@ def make_batched_superpoint_extract_fn(
 
     @torch.no_grad()
     def extract_batch(imgs: torch.Tensor) -> list[Features]:
-        x = _pad_to_multiple(_to_float_images(torch.as_tensor(imgs).to(dev)))
-        heat, desc = superpoint_heads(model, x, compute_dtype)
-        return [
-            select_keypoints(
-                heat[i], desc[i], cfg.padded_keypoints, threshold,
-                img=x[i] if cfg.superpoint_forstner else None,
-            )
-            for i in range(x.shape[0])
-        ]
+        with span("extract"):
+            x = _pad_to_multiple(_to_float_images(torch.as_tensor(imgs).to(dev)))
+            heat, desc = superpoint_heads(model, x, compute_dtype)
+            return [
+                select_keypoints(
+                    heat[i], desc[i], cfg.padded_keypoints, threshold,
+                    img=x[i] if cfg.superpoint_forstner else None,
+                )
+                for i in range(x.shape[0])
+            ]
 
     extract_batch.model, extract_batch.threshold = model, threshold
     return extract_batch
