@@ -38,7 +38,10 @@ Phases (any failed check raises, so the script exits non-zero):
      fixture in 4 chunks of 8, through `make_chunked_pipeline_fn`: every
      kernel launch count is zeroed before the pass and read after it;
      resets == 0, keyframes >= 28, sim3 ATE (frames 8:) <= 0.05 m,
-     K1 x 32, K2 x 96 and K3 x 0 launches; then a second, timed pass,
+     K1 x 32, K2 x 96 and K3 x 0 launches, the null-vector kernel twice a
+     frame after the first (the bootstrap's cheirality and triangulation,
+     then each tracking keyframe's DLT PnP and triangulation; once on a
+     tracking frame that makes no keyframe); then a second, timed pass,
      bit-equal to the first in T_wc, resets and keyframes;
   7. the KITTI-gates path: `get_config("kitti", "sift")` (P3P, 40-px
      keyframe gate, 1-px PnP gate, 4 octaves) with the renderer-matched
@@ -174,7 +177,16 @@ Phases (any failed check raises, so the script exits non-zero):
      scored on the host (exact nearest-two search for the ratio test) at
      repeatability@3px > 0.5 and >= 0.9 x cv2's, precision@4px > 0.9 and
      >= cv2's - 0.05 with more than 100 correct, more than 200 keypoints a
-     frame; K2 x 2 frames x its octaves, all TMA.
+     frame; K2 x 2 frames x its octaves, all TMA;
+ 27. (after phase 4) the null-vector kernel (csrc/small_eig.cu, what
+     `smallest_eigvec` runs for n >= 4) against its plain version at the
+     main path's shapes, SMALL_EIG_SHAPES: DLT PnP's 256 x 12 x 12, keyframe
+     triangulation's 4096 x 4 x 4 and the eight-point system's 256 x 9 x 9,
+     normal matrices of unit rows one short of full rank; max abs error <=
+     SMALL_EIG_TOL, how many vectors are bit-equal, a second call bit-equal
+     to the first; the kernel's device time (`time_ms`) and the host time
+     of one call, synchronised, of the kernel, the plain version
+     (thousands of launches) and `torch.linalg.eigh` (the library's).
 K1 is also held against its plain version at the SuperPoint path's shape,
 2048 x 2048 x 256, and timed there beside `cdist` + `topk`, on a log line of
 its own (phase 2). Every phase logs its seconds.
@@ -518,6 +530,13 @@ TRAIN_VO_PAIRS = 12  # one scene of 8 frames: 6 x 2 pairs at gaps 1 and 2
 TRAIN_SP_HW, TRAIN_SP_BATCH, TRAIN_SP_LR = (320, 640), 8, 2e-4
 TRAIN_H_BATCH, TRAIN_VO_BATCH, TRAIN_VO_SLOTS, TRAIN_MATCHER_LR = 8, 4, 1024, 1e-4
 TRAIN_HELD_OUT = 2
+# the null-vector kernel's shapes, (batch, n, rank of the normal matrix):
+# DLT PnP's hypotheses, keyframe triangulation's slots, the eight-point
+# essential system's hypotheses; its vectors against the plain version's on
+# the card: the two sum the trace and the squared norm in other orders
+SMALL_EIG_SHAPES = ((256, 12, 11), (4096, 4, 3), (256, 9, 8))
+SMALL_EIG_TOL = 1e-5
+SMALL_EIG_ITERS = 24
 TRAIN_DP_HW, TRAIN_DP_BATCH, TRAIN_DP_LR = (96, 128), 16, 1e-3
 # step 0's loss and terms on the card against the port on the CPU (same
 # weights and batch; float32 on both, TF32 off; cuDNN and oneDNN sum the
@@ -1029,6 +1048,82 @@ def phase_blur(torch, dev, card):
     )
 
 
+def small_eig_ops(n: int, iters: int = SMALL_EIG_ITERS) -> int:
+    """Floating-point operations of one matrix's null-vector solve in
+    csrc/small_eig.cu: trace and shift, the Cholesky factor, the start
+    vector, then `iters` passes of two substitutions, norm and division; a
+    square root, reciprocal or division counts as one."""
+    chol = sum(2 * j + 2 + (n - 1 - j) * (2 * j + 1) for j in range(n))
+    return (n - 1) + 3 + n * (n + 1) // 2 + 1 + chol + 2 * n + iters * (2 * n * n + 3 * n)
+
+
+def phase_small_eig(torch, dev, card):
+    """The null-vector kernel against its plain version at SMALL_EIG_SHAPES;
+    its device time (`time_ms`), and the host time of one call, ending in a
+    synchronise, of the kernel, of the plain version (thousands of
+    launches: its cost is the host's) and of `torch.linalg.eigh` (it reads
+    its status back). The profiler is not used here: with six sessions of
+    it here, a later phase's `busy_ms` once found no device events. The
+    record's times are a SIFT tracking frame's two launches (PnP and
+    triangulation) summed; its `plain_ms` and `library_ms` are host times."""
+    from visualodometry_tpu_torch.ops import small_eig as se
+
+    def host_ms(fn, reps: int = 3) -> float:
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    rng = np.random.default_rng(17)
+    shapes, err = {}, 0.0
+    for B, n, rank in SMALL_EIG_SHAPES:
+        A = rng.normal(size=(B, rank, n))
+        A /= np.linalg.norm(A, axis=-1, keepdims=True)
+        M = torch.as_tensor((np.swapaxes(A, 1, 2) @ A).astype(np.float32), device=dev)
+        vk = se.smallest_eigvec(M)
+        vp = se._smallest_eigvec_torch(M)
+        again = se.smallest_eigvec(M)
+        torch.cuda.synchronize()
+        e = float((vk - vp).abs().max())
+        same = int((vk == vp).all(dim=-1).sum())
+        repeat = bool(torch.equal(vk, again))
+        log(f"small_eig parity at ({B}, {n}, {n}), rank {rank}: max abs err {e:.3e}, "
+            f"{same} of {B} vectors bit-equal, second call bit-equal {repeat}")
+        check(bool(torch.isfinite(vk).all()), f"small_eig gave non-finite vectors at n={n}")
+        check(e <= SMALL_EIG_TOL, f"small_eig disagrees with the plain version at n={n}: {e:.3e}")
+        check(repeat, f"small_eig does not repeat at n={n}")
+        err = max(err, e)
+        ops, nbytes = B * small_eig_ops(n), 4 * B * (n * n + n)
+        b_ms, b_by = bound_ms(ops, nbytes)
+        rec = dict(
+            ms=time_ms(torch, lambda: se.smallest_eigvec(M)),
+            host_ms=host_ms(lambda: se.smallest_eigvec(M), reps=11),
+            plain_ms=host_ms(lambda: se._smallest_eigvec_torch(M)),
+            library_ms=host_ms(lambda: torch.linalg.eigh(M)[1][..., 0], reps=11),
+            bound_ms=b_ms, bound_by=b_by, bit_equal=same, batch=B, max_abs_err=e,
+        )
+        log(f"small_eig at ({B}, {n}, {n}): kernel {rec['ms']:.4f} ms on the device, "
+            f"{rec['host_ms']:.3f} ms host a call; plain {rec['plain_ms']:.2f} ms host a call; "
+            f"library (eigh) {rec['library_ms']:.3f} ms host a call; bound {b_ms:.6f} ms "
+            f"({b_by}), {b_ms / rec['ms']:.2%} of it, on {card}")
+        shapes[f"{n}x{n}"] = rec
+    frame = [shapes["12x12"], shapes["4x4"]]
+    return dict(
+        name="smallest_eigvec", route="cuda",
+        source="visualodometry_tpu_torch/csrc/small_eig.cu",
+        replaces="none: XLA fuses visualodometry_tpu/geometry/linalg.py smallest_eigvec",
+        max_abs_err=err, shapes=shapes,
+        **{k: sum(r[k] for r in frame)
+           for k in ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms")},
+        bound_by=shapes["12x12"]["bound_by"],
+    )
+
+
 def phase_main_path(torch, dev, card):
     from visualodometry_tpu_torch import config_from_dict
     from visualodometry_tpu_torch.core import init_state, make_chunked_pipeline_fn
@@ -1074,6 +1169,13 @@ def phase_main_path(torch, dev, card):
     check(launches["extract_patches"] == 96,
           f"K2 launched {launches['extract_patches']} times, not 96")
     check(launches["blur_stack"] == 0, "the main path's pyramid is the band matmul")
+    # every frame after the first bootstraps or tracks: two null-vector
+    # launches a keyframe (the bootstrap's are its cheirality vote and its
+    # triangulation), one a tracking frame that makes none (DLT PnP)
+    eig, eig_want = small_eig_launches(), 2 * keyframes + (N_FRAMES - 1 - keyframes)
+    log(f"main path: the null-vector kernel launched {eig} times ({eig_want} expected)")
+    check(eig == eig_want, f"the null-vector kernel launched {eig} times, not {eig_want}")
+    launches["smallest_eigvec"] = eig
 
     t0 = time.perf_counter()
     again = run_pass()
@@ -2904,10 +3006,16 @@ def phase_gates_all(torch, dev, smi, fixture) -> dict:
 
 
 def zero_launches():
-    from visualodometry_tpu_torch.ops import match_top2, patches, pyramid
+    from visualodometry_tpu_torch.ops import match_top2, patches, pyramid, small_eig
 
-    match_top2.launches = patches.launches = pyramid.launches = 0
+    match_top2.launches = patches.launches = pyramid.launches = small_eig.launches = 0
     patches.routes.update(tma=0, scalar=0)
+
+
+def small_eig_launches() -> int:
+    from visualodometry_tpu_torch.ops import small_eig
+
+    return small_eig.launches
 
 
 def read_routes() -> dict:
@@ -2961,7 +3069,8 @@ def run_phases(torch, dev, smi, fixtures: dict, t_start: float) -> int:
     tmp = os.environ.get("TMPDIR", "/tmp")
     kernels = [timed("match", phase_match, torch, dev, smi),
                timed("patches", phase_patches, torch, dev),
-               timed("blur", phase_blur, torch, dev, smi)]
+               timed("blur", phase_blur, torch, dev, smi),
+               timed("small_eig", phase_small_eig, torch, dev, smi)]
     kernels[0]["lanes"] = timed("match_lanes", phase_match_lanes, torch, dev, smi)
     launches, scene, u8, main_summary = timed("main_path", phase_main_path, torch, dev, smi)
     timed("cli", phase_cli, torch, dev, smi, scene, u8, tmp, fixtures["drill"])
@@ -3006,7 +3115,7 @@ def run_phases(torch, dev, smi, fixtures: dict, t_start: float) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_peak",
             "bound_f32_cores_ms", "at_256d", "klt", "lanes", "train", "long_corridor",
-            "sift_opencv")
+            "sift_opencv", "host_ms", "shapes")
     log(f"chip_smoke.py: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [{key: k[key] for key in keys if key in k} for k in kernels]}))
     log(json.dumps({"ok": True, "device": {

@@ -18,6 +18,7 @@ from visualodometry_tpu_torch.ops import _build
 from visualodometry_tpu_torch.ops import match_top2 as mt
 from visualodometry_tpu_torch.ops import patches as pt
 from visualodometry_tpu_torch.ops import pyramid as py
+from visualodometry_tpu_torch.ops import small_eig as se
 
 
 @pytest.fixture
@@ -595,3 +596,146 @@ def test_scatter_drop_repeats_on_card(cuda_device, rows, dtype):
     d, i, s = dst.to(cuda_device), idx.to(cuda_device), src.to(cuda_device)
     for _ in range(20):
         assert torch.equal(scatter_drop(d, i, s).cpu(), want)
+
+
+def _normal_matrices(rng, batch, n, rank):
+    """A^T A of `rank` unit rows of width n, as the DLT and triangulation
+    build them (pnp.py, triangulation.py): rank-deficient normal matrices,
+    float32, shape batch + (n, n)."""
+    A = rng.normal(size=tuple(batch) + (rank, n))
+    A /= np.linalg.norm(A, axis=-1, keepdims=True)
+    return torch.as_tensor((np.swapaxes(A, -1, -2) @ A).astype(np.float32))
+
+
+def test_small_eig_source_is_built():
+    assert "small_eig" in _build.KERNEL_SOURCES
+    assert "extern \"C\" int small_eig_launch" in (_build.CSRC / "small_eig.cu").read_text()
+
+
+@pytest.mark.parametrize("batch, n", [((5,), 4), ((3,), 9), ((2, 3), 12), ((1,), 16)])
+def test_small_eig_cpu_takes_the_plain_version(batch, n):
+    """`linalg.smallest_eigvec` on a CPU tensor is the plain version bit for
+    bit; no launch is counted, in the module or in the program's recorder."""
+    from visualodometry_tpu_torch.geometry import linalg
+    from visualodometry_tpu_torch.utils import profiling
+
+    M = _normal_matrices(np.random.default_rng(n), batch, n, n - 1)
+    before = se.launches
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        v = linalg.smallest_eigvec(M)
+        counted = profiling.summary()
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert torch.equal(v, se._smallest_eigvec_torch(M))
+    assert v.shape == M.shape[:-1]
+    assert se.launches == before and "small_eig.launch" not in counted
+
+
+@pytest.mark.parametrize("n", list(range(se.MIN_N, se.MAX_N + 1)))
+def test_small_eig_plain_version_finds_the_null_vector(n):
+    """At every n the kernel is built for, the plain version's vector spans
+    the null space of a rank n - 1 normal matrix."""
+    M = _normal_matrices(np.random.default_rng(100 + n), (16,), n, n - 1)
+    v = se._smallest_eigvec_torch(M)
+    np.testing.assert_allclose(torch.linalg.vector_norm(v, dim=-1).numpy(), 1.0, atol=1e-6)
+    assert float(torch.linalg.vector_norm(M @ v[..., None], dim=(-2, -1)).max()) <= 1e-5
+
+
+def test_smallest_eigvec_float64_cpu_takes_the_plain_version():
+    """A float64 CPU tensor (the tests' yardstick) runs the plain version
+    in float64; the wrapper itself takes float32 only."""
+    from visualodometry_tpu_torch.geometry import linalg
+
+    M = _normal_matrices(np.random.default_rng(9), (4,), 9, 8).double()
+    v = linalg.smallest_eigvec(M)
+    assert v.dtype == torch.float64 and torch.equal(v, se._smallest_eigvec_torch(M))
+
+
+def test_small_eig_checks_inputs():
+    with pytest.raises(TypeError):
+        se.smallest_eigvec(torch.eye(4, dtype=torch.float64))
+    for bad in (torch.eye(3), torch.eye(17), torch.zeros(2, 4, 5), torch.zeros(4)):
+        with pytest.raises(ValueError):
+            se.smallest_eigvec(bad)
+
+
+def test_smallest_eigvec_n3_takes_the_closed_form(monkeypatch):
+    from visualodometry_tpu_torch.geometry import linalg
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("n = 3 reached ops/small_eig.py")
+
+    monkeypatch.setattr(se, "smallest_eigvec", refuse)
+    M = _normal_matrices(np.random.default_rng(3), (7,), 3, 2)
+    assert torch.equal(linalg.smallest_eigvec(M), linalg.eigh3(M)[1][..., :, 0])
+
+
+def _small_eig_gap(M):
+    """Kernel against the plain version on the same card: the largest
+    absolute gap and how many vectors are bit-equal."""
+    vk = se.smallest_eigvec(M)
+    vp = se._smallest_eigvec_torch(M)
+    torch.cuda.synchronize()
+    assert vk.shape == vp.shape == M.shape[:-1]
+    assert bool(torch.isfinite(vk).all())
+    same = int((vk == vp).all(dim=-1).sum())
+    return float((vk - vp).abs().max()), same
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, n, rank", [
+    ((256,), 12, 11), ((512,), 12, 11),  # DLT PnP
+    ((4096,), 4, 3),  # keyframe triangulation
+    ((256,), 9, 8),  # the eight-point essential system
+    ((2, 3), 12, 11),  # leading dims
+])
+def test_small_eig_kernel_matches_plain(cuda_device, batch, n, rank):
+    """Within 1e-5 of the plain version: the two differ only in the order
+    of the trace's and the squared norm's sums (csrc/small_eig.cu)."""
+    M = _normal_matrices(np.random.default_rng(n * rank), batch, n, rank).to(cuda_device)
+    gap, _ = _small_eig_gap(M)
+    assert gap <= 1e-5, gap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", list(range(se.MIN_N, se.MAX_N + 1)))
+def test_small_eig_kernel_every_n(cuda_device, n):
+    """Every instantiation, on a ragged batch of 37 (one full block of 32
+    and a part block)."""
+    M = _normal_matrices(np.random.default_rng(200 + n), (37,), n, n - 1).to(cuda_device)
+    gap, _ = _small_eig_gap(M)
+    assert gap <= 1e-5, (n, gap)
+
+
+@pytest.mark.cuda
+def test_small_eig_zero_matrix_stays_finite(cuda_device):
+    """All-zero matrices: the pivots clamp, the vector stays finite and is
+    the normalised start vector, as in the plain version."""
+    M = torch.zeros(40, 12, 12, device=cuda_device)
+    gap, _ = _small_eig_gap(M)
+    assert gap <= 1e-6
+    start = 1.0 + 0.01 * torch.arange(12, dtype=torch.float32)
+    want = start / torch.linalg.vector_norm(start)
+    got = se.smallest_eigvec(M).cpu()
+    np.testing.assert_allclose(got.numpy(), want.expand(40, 12).numpy(), atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_small_eig_repeats_counts_and_adds_no_sync(cuda_device):
+    """Two calls bit-equal; one launch counted a call; no host read."""
+    M = _normal_matrices(np.random.default_rng(7), (256,), 12, 11).to(cuda_device)
+    before = se.launches
+    a = se.smallest_eigvec(M)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        b = se.smallest_eigvec(M)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(a, b)
+    assert se.launches == before + 2
+    with pytest.raises(ValueError, match="contiguous"):
+        se.smallest_eigvec(M.transpose(-1, -2))

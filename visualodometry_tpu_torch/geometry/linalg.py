@@ -2,7 +2,8 @@
 
 Port of visualodometry_tpu/geometry/linalg.py: `eigh3` (Cardano), `svd3`,
 `smallest_eigvec` (shifted inverse iteration through an unrolled
-Cholesky), `nullvec`, `inv3_sym` (adjugate), `cholesky_small` /
+Cholesky; for n >= 4 in ops/small_eig.py, one CUDA kernel on the card),
+`nullvec`, `inv3_sym` (adjugate), `cholesky_small` /
 `cho_solve_small`, `solve_psd_small`, and for bundle adjustment
 `solve_psd` and `solve_psd_pcg`. The closed forms are kept as written
 because they set the numerics of the estimators; `torch.linalg` would give
@@ -178,26 +179,21 @@ def cho_solve_small(L, b: torch.Tensor) -> torch.Tensor:
 def smallest_eigvec(M: torch.Tensor, iters: int = 24) -> torch.Tensor:
     """Unit eigenvector of the smallest eigenvalue of symmetric (..., n, n).
 
-    n=3 uses the closed form; larger n uses shifted inverse iteration
-    through one unrolled Cholesky factorization.
+    n=3 uses the closed form; 4 <= n <= 16 uses shifted inverse iteration
+    through one Cholesky factorization, in ops/small_eig.py: one CUDA
+    kernel launch for a float32 CUDA tensor, the unrolled plain version for
+    a CPU one (of any float dtype: float64 is the tests' yardstick).
     """
     n = M.shape[-1]
     if n == 3:
         _, V = eigh3(M)
         return V[..., :, 0]
+    # imported here: ops/small_eig.py builds its plain version on this module
+    from visualodometry_tpu_torch.ops import small_eig
 
-    tr = torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
-    eps = (torch.abs(tr) / n) * 1e-6 + 1e-12
-    Ms = M + eps[..., None, None] * torch.eye(n, dtype=M.dtype, device=M.device)
-    L = cholesky_small(Ms)
-
-    v = (1.0 + 0.01 * torch.arange(n, dtype=M.dtype, device=M.device)).expand(
-        M.shape[:-1]
-    )
-    for _ in range(iters):
-        v = cho_solve_small(L, v)
-        v = v / torch.clamp(_norm(v), min=_TINY)
-    return v
+    if M.device.type == "cpu" and M.dtype != torch.float32:
+        return small_eig._smallest_eigvec_torch(M, iters)
+    return small_eig.smallest_eigvec(M.contiguous(), iters)
 
 
 def nullvec(A: torch.Tensor) -> torch.Tensor:
