@@ -41,7 +41,9 @@ Phases (any failed check raises, so the script exits non-zero):
      K1 x 32, K2 x 96 and K3 x 0 launches, the null-vector kernel twice a
      frame after the first (the bootstrap's cheirality and triangulation,
      then each tracking keyframe's DLT PnP and triangulation; once on a
-     tracking frame that makes no keyframe); then a second, timed pass,
+     tracking frame that makes no keyframe), the pose-polish kernel once a
+     tracking frame (one PnP each: every frame after the bootstrap at
+     frame 1); then a second, timed pass,
      bit-equal to the first in T_wc, resets and keyframes;
   7. the KITTI-gates path: `get_config("kitti", "sift")` (P3P, 40-px
      keyframe gate, 1-px PnP gate, 4 octaves) with the renderer-matched
@@ -186,7 +188,15 @@ Phases (any failed check raises, so the script exits non-zero):
      SMALL_EIG_TOL, how many vectors are bit-equal, a second call bit-equal
      to the first; the kernel's device time (`time_ms`) and the host time
      of one call, synchronised, of the kernel, the plain version
-     (thousands of launches) and `torch.linalg.eigh` (the library's).
+     (thousands of launches) and `torch.linalg.eigh` (the library's);
+ 28. (after phase 27) the pose-polish kernel (csrc/pose_polish.cu, PnP's
+     IRLS Gauss-Newton polish) against its plain version on
+     `make_pnp_problem`'s correspondences at the two cells' point counts,
+     POSE_POLISH_N, 30% outliers, 3 rounds of 8 + 3 + 3 iterations: the
+     rotation and translation gaps <= POSE_POLISH_ROT_TOL and
+     POSE_POLISH_TRANS_TOL, a second call bit-equal to the first; the
+     kernel's device time (`time_ms`) and the host time of one call,
+     synchronised, of the kernel and of the plain version (~4,475 launches).
 K1 is also held against its plain version at the SuperPoint path's shape,
 2048 x 2048 x 256, and timed there beside `cdist` + `topk`, on a log line of
 its own (phase 2). Every phase logs its seconds.
@@ -537,6 +547,12 @@ TRAIN_HELD_OUT = 2
 SMALL_EIG_SHAPES = ((256, 12, 11), (4096, 4, 3), (256, 9, 8))
 SMALL_EIG_TOL = 1e-5
 SMALL_EIG_ITERS = 24
+# the pose polish's point counts (SIFT's 4096 slots, SuperPoint's 2048) and
+# its pose against the plain version's on the card, which sums over the
+# points in other orders: rotation (rad) and translation over its length
+# (tests/test_torch_pose_polish.py gives the measurements behind them)
+POSE_POLISH_N = (4096, 2048)
+POSE_POLISH_ROT_TOL, POSE_POLISH_TRANS_TOL = 1e-6, 3e-5
 TRAIN_DP_HW, TRAIN_DP_BATCH, TRAIN_DP_LR = (96, 128), 16, 1e-3
 # step 0's loss and terms on the card against the port on the CPU (same
 # weights and batch; float32 on both, TF32 off; cuDNN and oneDNN sum the
@@ -1048,6 +1064,20 @@ def phase_blur(torch, dev, card):
     )
 
 
+def host_ms(torch, fn, reps: int = 3) -> float:
+    """Median host time of one call of `fn` that ends in a synchronise, in
+    milliseconds, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
 def small_eig_ops(n: int, iters: int = SMALL_EIG_ITERS) -> int:
     """Floating-point operations of one matrix's null-vector solve in
     csrc/small_eig.cu: trace and shift, the Cholesky factor, the start
@@ -1067,17 +1097,6 @@ def phase_small_eig(torch, dev, card):
     record's times are a SIFT tracking frame's two launches (PnP and
     triangulation) summed; its `plain_ms` and `library_ms` are host times."""
     from visualodometry_tpu_torch.ops import small_eig as se
-
-    def host_ms(fn, reps: int = 3) -> float:
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(times))
 
     rng = np.random.default_rng(17)
     shapes, err = {}, 0.0
@@ -1102,9 +1121,9 @@ def phase_small_eig(torch, dev, card):
         b_ms, b_by = bound_ms(ops, nbytes)
         rec = dict(
             ms=time_ms(torch, lambda: se.smallest_eigvec(M)),
-            host_ms=host_ms(lambda: se.smallest_eigvec(M), reps=11),
-            plain_ms=host_ms(lambda: se._smallest_eigvec_torch(M)),
-            library_ms=host_ms(lambda: torch.linalg.eigh(M)[1][..., 0], reps=11),
+            host_ms=host_ms(torch, lambda: se.smallest_eigvec(M), reps=11),
+            plain_ms=host_ms(torch, lambda: se._smallest_eigvec_torch(M)),
+            library_ms=host_ms(torch, lambda: torch.linalg.eigh(M)[1][..., 0], reps=11),
             bound_ms=b_ms, bound_by=b_by, bit_equal=same, batch=B, max_abs_err=e,
         )
         log(f"small_eig at ({B}, {n}, {n}): kernel {rec['ms']:.4f} ms on the device, "
@@ -1121,6 +1140,83 @@ def phase_small_eig(torch, dev, card):
         **{k: sum(r[k] for r in frame)
            for k in ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms")},
         bound_by=shapes["12x12"]["bound_by"],
+    )
+
+
+def pose_polish_ops(n: int, rounds: int, iters: int) -> int:
+    """Floating-point operations of one polish in csrc/pose_polish.cu at n
+    points, every point counted in every pass (the kernel skips those of
+    weight 0): a weight pass of 35 a point each round; in each iteration
+    164 a point (projection 24, residual 2, Jacobian 18, weighting 12, the
+    sums of H and b 108), the block's sums of the 27 partials (27 x 511)
+    and ~450 for the damping, the 6x6 factor and solves, the exponential
+    and the product with T."""
+    passes = iters + (rounds - 1) * max(3, iters // 3)
+    return rounds * n * 35 + passes * (n * 164 + 27 * 511 + 450)
+
+
+def phase_pose_polish(torch, dev, card):
+    """The pose-polish kernel against its plain version at POSE_POLISH_N;
+    its device time (`time_ms`) and the host time of one call, ending in a
+    synchronise, of the kernel and of the plain version (its cost is the
+    host's launches). Host clocks and CUDA events only, as in phase 27. The
+    record's times are SIFT's: a tracking frame's one launch at 4096
+    points."""
+    from visualodometry_tpu_torch import config_from_dict
+    from visualodometry_tpu_torch.data.synthetic import K_DEFAULT, make_pnp_problem
+    from visualodometry_tpu_torch.geometry.so3 import so3_log
+    from visualodometry_tpu_torch.ops import pose_polish as pp
+
+    def gaps(Ta, Tb):
+        Ta, Tb = Ta.double().cpu(), Tb.double().cpu()
+        rot = float(torch.linalg.vector_norm(so3_log(Ta[:3, :3] @ Tb[:3, :3].T)))
+        trans = float(torch.linalg.vector_norm(Ta[:3, 3] - Tb[:3, 3])
+                      / torch.linalg.vector_norm(Tb[:3, 3]))
+        return rot, trans
+
+    cfg = config_from_dict(BENCH_CFG)
+    delta = cfg.pnp_irls_delta * cfg.pnp_reproj_err
+    cut_sq = (cfg.pnp_irls_cut * cfg.pnp_reproj_err) ** 2
+    rounds, iters = cfg.pnp_refine_rounds, cfg.pnp_refine_iters
+    K = torch.as_tensor(K_DEFAULT, device=dev)
+    shapes = {}
+    for n in POSE_POLISH_N:
+        *arrays, valid = make_pnp_problem(n, 0.3, seed=n)
+        _, T0, X, uv = (torch.as_tensor(a, device=dev) for a in arrays)
+        valid = torch.as_tensor(valid, device=dev)
+        args = (T0, X, uv, valid, K, delta, cut_sq, rounds, iters)
+        Tk = pp.polish_pose(*args)
+        Tp = pp._polish_pose_torch(*args)
+        again = pp.polish_pose(*args)
+        torch.cuda.synchronize()
+        rot, trans = gaps(Tk, Tp)
+        repeat = bool(torch.equal(Tk, again))
+        log(f"pose_polish parity at {n} points, 30% outliers: rotation gap {rot:.3e} rad, "
+            f"translation gap {trans:.3e}, max abs err {float((Tk - Tp).abs().max()):.3e}, "
+            f"second call bit-equal {repeat}")
+        check(bool(torch.isfinite(Tk).all()), f"pose_polish gave a non-finite pose at {n}")
+        check(rot <= POSE_POLISH_ROT_TOL and trans <= POSE_POLISH_TRANS_TOL,
+              f"pose_polish disagrees with the plain version at {n}: {rot:.3e}, {trans:.3e}")
+        check(repeat, f"pose_polish does not repeat at {n}")
+        b_ms, b_by = bound_ms(pose_polish_ops(n, rounds, iters), 21 * n + 4 * (16 + 9 + 16))
+        rec = dict(
+            ms=time_ms(torch, lambda: pp.polish_pose(*args)),
+            host_ms=host_ms(torch, lambda: pp.polish_pose(*args), reps=11),
+            plain_ms=host_ms(torch, lambda: pp._polish_pose_torch(*args)),
+            bound_ms=b_ms, bound_by=b_by, rot_gap=rot, trans_gap=trans,
+            max_abs_err=float((Tk - Tp).abs().max()),
+        )
+        log(f"pose_polish at {n} points: kernel {rec['ms']:.4f} ms on the device, "
+            f"{rec['host_ms']:.3f} ms host a call; plain {rec['plain_ms']:.2f} ms host a call; "
+            f"bound {b_ms:.6f} ms ({b_by}), {b_ms / rec['ms']:.2%} of it, on {card}")
+        shapes[str(n)] = rec
+    sift = shapes[str(POSE_POLISH_N[0])]
+    return dict(
+        name="polish_pose", route="cuda",
+        source="visualodometry_tpu_torch/csrc/pose_polish.cu",
+        replaces="none: XLA fuses visualodometry_tpu/estimation/pnp.py's IRLS polish",
+        max_abs_err=max(r["max_abs_err"] for r in shapes.values()), shapes=shapes,
+        **{k: sift[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by")},
     )
 
 
@@ -1176,6 +1272,12 @@ def phase_main_path(torch, dev, card):
     log(f"main path: the null-vector kernel launched {eig} times ({eig_want} expected)")
     check(eig == eig_want, f"the null-vector kernel launched {eig} times, not {eig_want}")
     launches["smallest_eigvec"] = eig
+    # one PnP a tracking frame: every frame after the bootstrap at frame 1
+    polish, polish_want = pose_polish_launches(), N_FRAMES - 2
+    log(f"main path: the pose-polish kernel launched {polish} times ({polish_want} expected)")
+    check(polish == polish_want, f"the pose-polish kernel launched {polish} times, "
+          f"not {polish_want}")
+    launches["polish_pose"] = polish
 
     t0 = time.perf_counter()
     again = run_pass()
@@ -3006,9 +3108,10 @@ def phase_gates_all(torch, dev, smi, fixture) -> dict:
 
 
 def zero_launches():
-    from visualodometry_tpu_torch.ops import match_top2, patches, pyramid, small_eig
+    from visualodometry_tpu_torch.ops import match_top2, patches, pose_polish, pyramid, small_eig
 
     match_top2.launches = patches.launches = pyramid.launches = small_eig.launches = 0
+    pose_polish.launches = 0
     patches.routes.update(tma=0, scalar=0)
 
 
@@ -3016,6 +3119,12 @@ def small_eig_launches() -> int:
     from visualodometry_tpu_torch.ops import small_eig
 
     return small_eig.launches
+
+
+def pose_polish_launches() -> int:
+    from visualodometry_tpu_torch.ops import pose_polish
+
+    return pose_polish.launches
 
 
 def read_routes() -> dict:
@@ -3070,7 +3179,8 @@ def run_phases(torch, dev, smi, fixtures: dict, t_start: float) -> int:
     kernels = [timed("match", phase_match, torch, dev, smi),
                timed("patches", phase_patches, torch, dev),
                timed("blur", phase_blur, torch, dev, smi),
-               timed("small_eig", phase_small_eig, torch, dev, smi)]
+               timed("small_eig", phase_small_eig, torch, dev, smi),
+               timed("pose_polish", phase_pose_polish, torch, dev, smi)]
     kernels[0]["lanes"] = timed("match_lanes", phase_match_lanes, torch, dev, smi)
     launches, scene, u8, main_summary = timed("main_path", phase_main_path, torch, dev, smi)
     timed("cli", phase_cli, torch, dev, smi, scene, u8, tmp, fixtures["drill"])
@@ -3109,7 +3219,7 @@ def run_phases(torch, dev, smi, fixtures: dict, t_start: float) -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         log(f"{k['name']}: max_abs_err {k['max_abs_err']:.3e}, kernel_ms {k['ms']:.4f}, "
-            f"plain_ms {k['plain_ms']:.4f}, library_ms {k['library_ms']:.4f}, "
+            f"plain_ms {k['plain_ms']:.4f}, library_ms {k.get('library_ms', float('nan')):.4f}, "
             f"bound_ms {k['bound_ms']:.4f} ({k['bound_by']}), "
             f"launches {k['launches']} on {smi}")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -8,7 +8,8 @@ seeds, so the frames are the same as the JAX package's. Also the dot renderer
 `render_image` (the KLT tests' frames), `render_features` (projected
 landmarks as `Features`) and `gt_correspondence`. Also its long fixtures
 (`make_marathon_fixture`, `make_long_corridor_fixture`: S-curves and
-blackout windows that force resets) and `segment_ate`, their metric.
+blackout windows that force resets) and `segment_ate`, their metric; and
+`make_pnp_problem`, the pose polish's correspondences.
 """
 
 from __future__ import annotations
@@ -542,3 +543,38 @@ def segment_ate(
         if e - s2 >= min_len:
             out.append((s, e, float(ate_rmse(est[s2:e], gt[s2:e], align="sim3"))))
     return out
+
+
+def _rodrigues(w: np.ndarray) -> np.ndarray:
+    theta = np.linalg.norm(w)
+    W = np.array([[0.0, -w[2], w[1]], [w[2], 0.0, -w[0]], [-w[1], w[0], 0.0]])
+    if theta < 1e-12:
+        return np.eye(3) + W
+    return np.eye(3) + np.sin(theta) / theta * W + (1 - np.cos(theta)) / theta**2 * W @ W
+
+
+def make_pnp_problem(n: int, outliers: float, seed: int, K: np.ndarray = K_DEFAULT):
+    """A KITTI-shaped PnP problem for the pose polish (ops/pose_polish.py).
+
+    n world points 4-60 m ahead, seen from a random camera-from-world pose
+    with 0.5 px of pixel noise; a share `outliers` of them moved anywhere in
+    the 1226x370 frame, a tenth invalid. The start pose is the true one
+    moved by ~0.2 degrees and ~2 cm, as a RANSAC winner may be. Returns
+    float32 arrays T_true (4, 4), T0 (4, 4), X (n, 3), uv (n, 2) and the
+    bool valid (n,).
+    """
+    rng = np.random.default_rng(seed)
+    X = np.stack([rng.uniform(-15, 15, n), rng.uniform(-3, 3, n), rng.uniform(4, 60, n)], 1)
+    aa, t = rng.normal(0.0, 0.05, 3), rng.normal(0.0, 0.5, 3)
+    T_true, T0 = np.eye(4), np.eye(4)
+    T_true[:3, :3], T_true[:3, 3] = _rodrigues(aa), t
+    p = X @ T_true[:3, :3].T + t
+    uv = p[:, :2] / p[:, 2:] * np.diag(K)[:2] + K[:2, 2]
+    uv += rng.normal(0.0, 0.5, uv.shape)
+    bad = rng.random(n) < outliers
+    uv[bad] = rng.uniform([0.0, 0.0], [1226.0, 370.0], (int(bad.sum()), 2))
+    valid = rng.random(n) >= 0.1
+    T0[:3, :3] = _rodrigues(aa + rng.normal(0.0, 0.002, 3))
+    T0[:3, 3] = t + rng.normal(0.0, 0.01, 3)
+    f32 = np.float32
+    return T_true.astype(f32), T0.astype(f32), X.astype(f32), uv.astype(f32), valid

@@ -3,8 +3,8 @@
 Port of visualodometry_tpu/estimation/pnp.py with both minimal solvers:
 the 6-point DLT and P3P (`cfg.pnp_solver`, P3P under `get_config("kitti")`).
 The minimal-sample indices come in explicitly as `idx`, (H, 6) or (H, 3)
-(`pnp_sample_size`); the GN polish's fixed iteration count is a Python
-loop.
+(`pnp_sample_size`); the IRLS Gauss-Newton polish of the winner is
+ops/pose_polish.py's `polish_pose` (one kernel launch on a CUDA tensor).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from visualodometry_tpu_torch.geometry.linalg import (
 )
 from visualodometry_tpu_torch.geometry.se3 import make_T, se3_exp
 from visualodometry_tpu_torch.geometry.so3 import so3_hat
+from visualodometry_tpu_torch.ops.pose_polish import polish_pose
 
 
 class PnPResult(NamedTuple):
@@ -213,19 +214,12 @@ def _finish_pnp(
 
     R_b, t_b = take(R_h, best), take(t_h, best)
     T_out = make_T(R_b, t_b)
-    delta = cfg.pnp_irls_delta * cfg.pnp_reproj_err
-    cut_sq = (cfg.pnp_irls_cut * cfg.pnp_reproj_err) ** 2
-    for rnd in range(max(1, cfg.pnp_refine_rounds)):
-        err_sq_r, z_r = _reproj_err_sq(T_out[:3, :3], T_out[:3, 3], pts3d, uv, K)
-        r = torch.sqrt(torch.clamp(err_sq_r, min=1e-12))
-        w = (
-            torch.clamp(delta / r, max=1.0)
-            * (err_sq_r < cut_sq)
-            * valid
-            * (z_r > 0)
-        )
-        iters = cfg.pnp_refine_iters if rnd == 0 else max(3, cfg.pnp_refine_iters // 3)
-        T_out = refine_pose_gn(T_out, pts3d, uv, w, K, iters)
+    T_out = polish_pose(
+        T_out, pts3d, uv, valid, K,
+        delta=cfg.pnp_irls_delta * cfg.pnp_reproj_err,
+        cut_sq=(cfg.pnp_irls_cut * cfg.pnp_reproj_err) ** 2,
+        rounds=cfg.pnp_refine_rounds, iters=cfg.pnp_refine_iters,
+    )
 
     err_sq_f, z_f = _reproj_err_sq(T_out[:3, :3], T_out[:3, 3], pts3d, uv, K)
     inliers_f = (err_sq_f < thresh_sq) & (z_f > 0) & valid
