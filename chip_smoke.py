@@ -3,6 +3,13 @@
 
 Run from the root of a checkout:  python3 chip_smoke.py
 
+The script checks: every path of the port on the card against its limits.
+Its only timings are the kernels' (phases 2-5, 14, 20, 27 and 28), which
+make the kernel table of its last lines; the speed of the port's paths is
+the benchmark's (`vobench/`, BENCHMARK.json). The peaks, the roofline
+bound and the interval union are the benchmark's own
+(`vobench/harness/counts.py`, `vobench/harness/trace.py`).
+
 Phases (any failed check raises, so the script exits non-zero):
   1. the card's name and power limit; build every CUDA kernel from
      `visualodometry_tpu_torch/csrc/` (one nvcc per source, in parallel);
@@ -43,7 +50,7 @@ Phases (any failed check raises, so the script exits non-zero):
      then each tracking keyframe's DLT PnP and triangulation; once on a
      tracking frame that makes no keyframe), the pose-polish kernel once a
      tracking frame (one PnP each: every frame after the bootstrap at
-     frame 1); then a second, timed pass,
+     frame 1); then a second pass,
      bit-equal to the first in T_wc, resets and keyframes;
   7. the KITTI-gates path: `get_config("kitti", "sift")` (P3P, 40-px
      keyframe gate, 1-px PnP gate, 4 octaves) with the renderer-matched
@@ -70,14 +77,10 @@ Phases (any failed check raises, so the script exits non-zero):
      JAX package's CPU count less 3 (scripts/learned_jax_cpu.py), sim3 ATE
      (frames 8:) under the gross bound, and the seeds' median against the
      JAX package's CPU median over seeds 0-7 (SEED_MEDIAN_FACTOR);
-     the device busy times (profiler) of the network (B = 8), of keypoint
-     selection and of the matcher, the step's wall time and a second, timed
-     pass (both over frames 0-15);
  11. the attention path: BENCH_CFG with the attention matcher (the v2
      weights, `adaptive_match` with pruning to 1024 and exit at 0.95, bf16):
      K2 x 96, K1 x 0, K3 x 0, resets == 0, sim3 ATE <= 0.05 m, keyframes as
-     above; the same times (SIFT extraction in place of network and
-     selection);
+     above;
  12. `VOEngine` with SuperPoint on the first 16 frames: no reset, finite
      positions;
  13. (moved out: the SuperPoint dtype x seed experiment is
@@ -92,13 +95,12 @@ Phases (any failed check raises, so the script exits non-zero):
      x 3 x 32 + 6 x tracking frames, all TMA; K1, K3 x 0) at each seed of
      KLT_SEEDS: resets == 0, tracking at the end, sim3 ATE under the gross
      bound, the seeds' median against the JAX package's CPU median over
-     seeds 0-7; host syncs a frame, a tracking chunk's device busy share,
-     and frames/s of a second pass over frames 0-15;
+     seeds 0-7;
  16. `klt_track` from frame 0 to 1 on its SIFT keypoints: the patch (K2)
      and gather paths on the card against the same paths on the CPU, and
      against each other;
  17. `ba_solve` on bench.py:bench_ba_solve_ms's problem against the port's
-     own CPU run, and its device busy time;
+     own CPU run;
  18. the main path with in-loop BA (`enable_ba=True`): resets == 0,
      keyframes within 3 of the JAX package's CPU count, BA ran, sim3 ATE
      <= BA_ATE_LIMIT, the main path's launches;
@@ -115,19 +117,18 @@ Phases (any failed check raises, so the script exits non-zero):
      a one-rank mesh under an NCCL process group, then two spawned processes
      sharing the card over gloo with CUDA tensors (map = 2), each against
      `ba_solve` at phase 17's limits and exactly against the same landmark
-     blocks summed in one process, with the all-reduce's time;
+     blocks summed in one process;
  22. the multi-sequence run as bench.py:bench_multiseq builds it, at B = 1,
      2, 4 lanes of the 32 frames (+5 b brightness): counts zeroed before the
      pass and read after (K1 x 32 carrying B lanes each, K2 x 96 B, K3 x 0),
      every lane at the main path's limits, lane 0 at B = 4 against the main
-     path, at most 2 host syncs a tracking frame, two tracking frames'
-     device busy share, and a second pass over frames 0-15, bit-equal to
-     the first there, with its aggregate frames/s (no limit);
+     path, at most 2 host syncs a tracking frame, and a second pass over
+     frames 0-15, bit-equal to the first there;
  23. the CLI (after phase 6), `visualodometry_tpu_torch.cli.main` in this
      process on phase 6's 32 frames written as a KITTI tree (PNG by a stdlib
      writer): the native decoder built from the checkout, `decode_batch` on
      every frame bit-equal to the decoder's arithmetic (uint8 x float32(1 /
-     255)) and on the native route, its host ms a chunk; the CLI's resolved
+     255)) and on the native route; the CLI's resolved
      config equal to the main path's; chunked (`--chunk 8`): 32 frames, K1 x
      32, K2 x 96, K3 x 0, ATE <= CLI_ATE_LIMIT; per frame with `--ba
      --smooth` on 16 frames: K1 x 16, K2 x 48, a finite ATE; `--tracker klt`
@@ -155,9 +156,8 @@ Phases (any failed check raises, so the script exits non-zero):
      per-layer heads, `matcher_loss_deep`, 8 x 512 and 4 x 1024 batches) for
      30 steps, then `evaluate` and one full-width `adaptive_match` on
      held-out problems; for (b) and (c) step 0's loss against the port on
-     the CPU, every loss finite, the last 5 losses' mean below the first 5's,
-     and steps/s, host batch ms, device step ms, busy share, peak memory and
-     FLOP/s; (d) the data-parallel SuperPoint step (96x128, batch 16) on a
+     the CPU, every loss finite, the last 5 losses' mean below the first 5's;
+     (d) the data-parallel SuperPoint step (96x128, batch 16) on a
      one-rank NCCL mesh, bit-equal to the plain step, and as two gloo ranks
      sharing the card, exactly the one-process mean of the halves;
  25. the long corridor (tests/test_long_sequence.py's configuration,
@@ -173,7 +173,7 @@ Phases (any failed check raises, so the script exits non-zero):
      x 0, all TMA; the pre-blackout drift's median and max against the cv2
      reference loop's (scripts/long_corridor_jax_cpu.py), the segment ATEs'
      medians against the JAX package's CPU medians and every pass at the
-     gross bound; frames/s, device busy share and host syncs a frame;
+     gross bound;
  26. SIFT against OpenCV (tests/test_sift_vs_opencv.py's 640x480 pair,
      CRC32 against the measured pair): the port's extractor on the card,
      scored on the host (exact nearest-two search for the ratio test) at
@@ -226,10 +226,8 @@ from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
-# Published H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
-PEAK_F32_FLOPS = 67e12  # float32 outside the tensor cores
-PEAK_TF32_FLOPS = 495e12  # TF32 on the tensor cores
-PEAK_BYTES = 3.35e12  # HBM3
+from vobench.harness.counts import PEAK_F32_FLOPS, PEAK_TF32_FLOPS, least_seconds
+from vobench.harness.trace import union_us  # noqa: F401  (read by scripts and tests)
 
 # bench.py:_build_cfg, the main path's operating point
 BENCH_CFG = dict(
@@ -404,10 +402,6 @@ MULTISEQ_LANES = (1, 2, 4)
 # the repeat pass covers the first two chunks (the script's time limit):
 # chunk 0 starts every lane, chunk 1 tracks
 MULTISEQ_REPEAT_FRAMES = 16
-MULTISEQ_PROFILED = (CHUNK, CHUNK + 1)  # two tracking frames of the second chunk
-# the timed passes that only read frames/s (learned paths, KLT) cover the
-# first two chunks, as the multi-sequence repeat does
-TIMED_FRAMES = 16
 K1_LANE_SHAPE = (4096, 4096, 128)
 # a spawned rank of the distributed BA must report within this many seconds
 DIST_TIMEOUT_S = 300
@@ -516,10 +510,6 @@ LONG_JAX_CPU_FINAL_SEGMENT = (0.7378, 1.7411, 2.5343, 1.5445, 2.5949, 1.5346, 2.
 LONG_SEEDS = (0, 1, 2)
 LONG_PRE_MEDIAN = 2.0
 LONG_PRE_MAX = 3.0
-# the chunks of the first pass whose host syncs are counted, and the one
-# whose device busy share is read (tracking, before the blackout)
-LONG_SYNC_CHUNKS = (1, 2, 3)
-LONG_PROFILE_CHUNK = 4
 
 # SIFT against OpenCV (phase 26): tests/test_sift_vs_opencv.py's pair (640 x
 # 480, scene seed 3, frames 0 and 1, float images) and extractor config. Its
@@ -559,9 +549,6 @@ TRAIN_DP_HW, TRAIN_DP_BATCH, TRAIN_DP_LR = (96, 128), 16, 1e-3
 # convolutions in other orders): measured 2.3e-7 (dense SuperPoint) and 0
 # (matcher) on an H100 80GB HBM3 (PERF.md)
 TRAIN_STEP0_RTOL = 1e-5
-# steps/s is read over the steps from this one on: the producer's queue,
-# filled while step 0 is checked against the CPU, has drained by then
-TRAIN_RATE_FROM = 10
 
 
 def timed(name: str, fn, *args):
@@ -581,10 +568,12 @@ def check(cond: bool, what: str):
         raise AssertionError(what)
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = flops / PEAK_F32_FLOPS
-    t_bytes = nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+def bound_ms(flops: float, nbytes: float,
+             peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    """The benchmark's roofline bound in milliseconds, and which of the two
+    bounds it: `flops` at `peak_flops` against `nbytes` at the HBM peak."""
+    seconds, by = least_seconds(flops, nbytes, peak_flops)
+    return seconds * 1e3, by
 
 
 _SPIN_CYCLES_PER_MS = None
@@ -600,7 +589,7 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3, batches: int = 3) -> flo
     kernels). The spin is sized from the measured enqueue time of a batch.
     A batch must stay under the card's queue of pending launches (about a
     thousand): beyond it the host waits for the spin and the reading becomes
-    the host's time; `busy_ms` measures the stages of many launches.
+    the host's time.
     """
     global _SPIN_CYCLES_PER_MS
     if _SPIN_CYCLES_PER_MS is None:
@@ -632,41 +621,6 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3, batches: int = 3) -> flo
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return float(np.median(times))
-
-
-def union_us(ranges) -> float:
-    """Total length of the union of [start, end) intervals (microseconds)."""
-    total = 0.0
-    end_max = None
-    for s, e in sorted(ranges):
-        if end_max is None or s > end_max:
-            total += e - s
-            end_max = e
-        elif e > end_max:
-            total += e - end_max
-            end_max = e
-    return total
-
-
-def busy_ms(torch, fn) -> float:
-    """Device busy time of one call of `fn`, in milliseconds: the union of
-    its kernels' intervals under torch.profiler, after one warm-up call.
-
-    For stages of hundreds to thousands of small launches, where `time_ms`
-    cannot hold its batch behind the spin: the card's launch queue fills
-    after about a thousand launches, the host then waits for the spin, and
-    the reading becomes the host's time. Gaps between kernels are not
-    counted, so this is the device's own time and no more."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    check(len(kernels) > 0, "the profiler recorded no device time")
-    return union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
 
 
 def _k1_parity(torch, m, d0, d1, valid1, what: str, abs_limit: float | None = None,
@@ -759,14 +713,12 @@ def phase_match(torch, dev, card):
     # written once and read once by the merge
     flops = 2.0 * n0 * n1 * d
     nbytes = (n0 + n1) * d * 4 + n1 + n0 * 12 + 2 * splits * n0 * 12
-    t_ops = 3.0 * flops / PEAK_TF32_FLOPS
-    t_bytes = nbytes / PEAK_BYTES
+    b_ms, b_by = bound_ms(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
     return dict(
         name="match_top2", route="cuda",
         source="visualodometry_tpu_torch/csrc/match_top2.cu",
         replaces="visualodometry_tpu/ops/match_pallas.py:101",
-        max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=max(t_ops, t_bytes) * 1e3,
-        bound_by="operations" if t_ops > t_bytes else "bytes", library_ms=t_l,
+        max_abs_err=err, ms=t_k, plain_ms=t_p, bound_ms=b_ms, bound_by=b_by, library_ms=t_l,
         # which peak the bound is taken at, and the float32 CUDA-core bound
         # of one product per element that earlier readings were held to
         bound_peak="tensor operations: 3 TF32 products per float32 product at 495 TFLOP/s",
@@ -797,13 +749,11 @@ def _k1_at_shape(torch, m, dev, card, shape, seed: int, where: str):
     t_p = time_ms(torch, lambda: m._top2_torch(d0, d1, valid1))
     t_l = time_ms(torch, lambda: _k1_library(torch, d0, d1, valid1))
     splits = m._splits(n0, n1, torch.cuda.get_device_properties(dev).multi_processor_count)
-    t_ops = 3.0 * 2.0 * n0 * n1 * d / PEAK_TF32_FLOPS
-    t_bytes = ((n0 + n1) * d * 4 + n1 + n0 * 12 + 2 * splits * n0 * 12) / PEAK_BYTES
-    b = max(t_ops, t_bytes) * 1e3
+    b, b_by = bound_ms(3.0 * 2.0 * n0 * n1 * d,
+                       (n0 + n1) * d * 4 + n1 + n0 * 12 + 2 * splits * n0 * 12, PEAK_TF32_FLOPS)
     log(f"K1 at {where} shape {n0} x {n1} x {d}: max abs err {err:.3e}, "
         f"kernel_ms {t_k:.4f}, plain_ms {t_p:.4f}, library_ms {t_l:.4f} (cdist + topk), "
-        f"bound_ms {b:.4f} "
-        f"({'operations' if t_ops > t_bytes else 'bytes'}, 3 TF32 products per float32 "
+        f"bound_ms {b:.4f} ({b_by}, 3 TF32 products per float32 "
         f"product), {b / t_k:.1%} of the bound, {splits} splits, on {card}")
     return dict(shape=list(shape), max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=t_l,
                 bound_ms=b)
@@ -1001,7 +951,7 @@ def phase_blur(torch, dev, card):
     g = torch.Generator(device=dev).manual_seed(2)
     err = 0.0
     t_k = t_p = t_l = t_m = 0.0
-    t_ops = t_bytes = b_ms = 0.0
+    all_flops = all_bytes = b_ms = 0.0
     for C, H, W in GATES_BLUR_SHAPES + EXTRA_BLUR_SHAPES:
         B = CHUNK
         img = torch.rand(B, H, W, generator=g, device=dev)
@@ -1045,8 +995,8 @@ def phase_blur(torch, dev, card):
         t_m += time_ms(torch, band_matmul, reps=11, warmup=2)
         flops = 2.0 * 2.0 * T * C * B * H * W
         nbytes = 4.0 * B * H * W * (1 + C)
-        t_ops += flops / PEAK_F32_FLOPS
-        t_bytes += nbytes / PEAK_BYTES
+        all_flops += flops
+        all_bytes += nbytes
         launch_bound, launch_by = bound_ms(flops, nbytes)
         b_ms += launch_bound
         log(f"K3 launch (C, H, W, T) = {(C, H, W, T)}, B={B}, {p.blur_stack_instantiation(taps)} "
@@ -1060,7 +1010,7 @@ def phase_blur(torch, dev, card):
         source="visualodometry_tpu_torch/csrc/blur_stack.cu",
         replaces="visualodometry_tpu/ops/pyramid.py:301",
         max_abs_err=err, ms=t_k / CHUNK, plain_ms=t_p / CHUNK, bound_ms=b_ms / CHUNK,
-        bound_by="operations" if t_ops > t_bytes else "bytes", library_ms=t_l / CHUNK,
+        bound_by=bound_ms(all_flops, all_bytes)[1], library_ms=t_l / CHUNK,
     )
 
 
@@ -1092,10 +1042,9 @@ def phase_small_eig(torch, dev, card):
     its device time (`time_ms`), and the host time of one call, ending in a
     synchronise, of the kernel, of the plain version (thousands of
     launches: its cost is the host's) and of `torch.linalg.eigh` (it reads
-    its status back). The profiler is not used here: with six sessions of
-    it here, a later phase's `busy_ms` once found no device events. The
-    record's times are a SIFT tracking frame's two launches (PnP and
-    triangulation) summed; its `plain_ms` and `library_ms` are host times."""
+    its status back). The record's times are a SIFT tracking frame's two
+    launches (PnP and triangulation) summed; its `plain_ms` and
+    `library_ms` are host times."""
     from visualodometry_tpu_torch.ops import small_eig as se
 
     rng = np.random.default_rng(17)
@@ -1246,9 +1195,7 @@ def phase_main_path(torch, dev, card):
         return outs
 
     zero_launches()
-    t0 = time.perf_counter()
     outs = run_pass()
-    first_s = time.perf_counter() - t0
     launches = read_launches()
 
     est = torch.cat([o.T_wc for o in outs])[:, :3, 3].cpu().numpy()
@@ -1257,7 +1204,7 @@ def phase_main_path(torch, dev, card):
     ate = float(ate_rmse(est[8:], scene.gt_positions[8 : len(est)], align="sim3"))
     check(bool(np.isfinite(est).all()), "main path produced non-finite poses")
     log(f"main path: {N_FRAMES} frames, resets {resets}, keyframes {keyframes}, "
-        f"sim3 ATE {ate:.6f} m, launches {launches}, first pass {first_s:.2f} s")
+        f"sim3 ATE {ate:.6f} m, launches {launches}")
     check(resets == 0, f"main path reset {resets} times")
     check(keyframes >= 28, f"main path made only {keyframes} keyframes")
     check(ate <= 0.05, f"main path sim3 ATE {ate:.4f} m > 0.05 m")
@@ -1279,12 +1226,8 @@ def phase_main_path(torch, dev, card):
           f"not {polish_want}")
     launches["polish_pose"] = polish
 
-    t0 = time.perf_counter()
-    again = run_pass()
-    dt = time.perf_counter() - t0
-    same = repeats(torch, outs, again)
-    log(f"main path second pass: {N_FRAMES / dt:.3f} frames/s ({dt:.3f} s for "
-        f"{N_FRAMES} frames) on {card}; T_wc, resets and keyframes bit-equal to the first "
+    same = repeats(torch, outs, run_pass())
+    log(f"main path second pass on {card}: T_wc, resets and keyframes bit-equal to the first "
         f"pass: {same}")
     check(same, "the main path's second pass differs from its first")
     return launches, scene, u8, dict(resets=resets, keyframes=keyframes)
@@ -1383,11 +1326,9 @@ def phase_cli(torch, dev, card, scene, u8, tmp_root, drill):
         W, H = native_decode.image_info(paths[0])
         check((W, H) == IMG_SIZE, f"decoded size {(W, H)}")
         native_decode.routes.update(native=0, pil=0)
-        times, decoded = [], []
+        decoded = []
         for i in range(0, N_FRAMES, CHUNK):
-            t0 = time.perf_counter()
             frames, n_ok = native_decode.decode_batch(paths[i : i + CHUNK], W, H)
-            times.append(time.perf_counter() - t0)
             check(n_ok == CHUNK, f"decode_batch decoded {n_ok} of {CHUNK}")
             decoded.append(frames)
         routes = dict(native_decode.routes)
@@ -1395,19 +1336,10 @@ def phase_cli(torch, dev, card, scene, u8, tmp_root, drill):
         want = u8.astype(np.float32) * np.float32(1.0 / 255.0)
         by_division = u8.astype(np.float32) / np.float32(255.0)
         back = (np.clip(decoded, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
-        t0 = time.perf_counter()
-        native_decode.decode_batch(paths[:CHUNK], W, H, threads=1)
-        one_thread_ms = (time.perf_counter() - t0) * 1e3 / CHUNK
-        ms = float(np.median(times)) * 1e3
-        pixel_mb = CHUNK * W * H / 1e6
-        file_mb = sum(os.path.getsize(p) for p in paths[:CHUNK]) / 1e6
         log(f"CLI decode: {N_FRAMES} PNG frames {W}x{H}, routes {routes}, bit-equal "
             f"{bool(np.array_equal(decoded, want))}, largest difference from u8 / 255 by "
             f"division {float(np.abs(decoded - by_division).max()):.3e}, uint8 round trip "
-            f"exact {bool(np.array_equal(back, u8))}; host decode {ms:.3f} ms a chunk of "
-            f"{CHUNK} (median of {len(times)}; {pixel_mb / ms * 1e3:.1f} MB/s of pixels, "
-            f"{file_mb / ms * 1e3:.1f} MB/s of PNG), one thread {one_thread_ms:.3f} ms a "
-            f"frame, {os.cpu_count()} host cores, beside {card}")
+            f"exact {bool(np.array_equal(back, u8))}")
         check(np.array_equal(decoded, want), "native decode is not the decoder's arithmetic")
         check(np.array_equal(back, u8), "native decode does not round-trip to the frames")
         check(routes == {"native": N_FRAMES, "pil": 0}, f"decode routes {routes}")
@@ -1550,12 +1482,10 @@ def phase_gates(torch, dev, card, fixture, pyramid_impl: str, seed: int = 0):
     state = init_state(cfg, desc_dim=128, device=dev)
     outs = []
     zero_launches()
-    t0 = time.perf_counter()
     for c in chunks:
         state, out = run(state, c)
         outs.append(out)
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
     launches = read_launches()
 
     T = torch.cat([o.T_wc for o in outs]).cpu().numpy()
@@ -1578,8 +1508,7 @@ def phase_gates(torch, dev, card, fixture, pyramid_impl: str, seed: int = 0):
         f"[{lo}, {hi}): {summary['unexplained']}, keyframes {summary['keyframes']} "
         f"({kf_after} after the last reset), tracking at the end {summary['tracking']}, "
         f"largest segment ATE {seg_max:.4f} m over {len(segs)} segments (gross-failure "
-        f"bound {gross:.3f} m), launches "
-        f"{launches}, {n / dt:.3f} frames/s first pass ({dt:.1f} s) on {card}")
+        f"bound {gross:.3f} m), launches {launches}, on {card}")
     check(bool(np.isfinite(T).all()), "KITTI-gates path produced non-finite poses")
     check(seg_max <= gross,
           f"KITTI-gates seed {seed}: largest segment ATE {seg_max:.3f} m > {gross:.3f} m")
@@ -1647,26 +1576,24 @@ def attention_config():
 
 
 def phase_learned(torch, dev, card, scene, u8, name: str):
-    """One learned path on the 32-frame fixture: tracking, launches, times."""
+    """One learned path on the 32-frame fixture: tracking and launches."""
     from visualodometry_tpu_torch.core import init_state, make_chunked_pipeline_fn
     from visualodometry_tpu_torch.eval import ate_rmse
-    from visualodometry_tpu_torch.frontend.superpoint import _pad_to_multiple
-    from visualodometry_tpu_torch.models.superpoint import select_keypoints, superpoint_heads
 
     sp = name == "superpoint"
     base_cfg = superpoint_config() if sp else attention_config()
     desc_dim = 256 if sp else 128
     chunks = [torch.as_tensor(u8[i : i + CHUNK]).to(dev) for i in range(0, N_FRAMES, CHUNK)]
 
-    def run_pass(cfg, n=N_FRAMES):
+    def run_pass(cfg):
         run = make_chunked_pipeline_fn(cfg, scene.K, device=dev)
         state = init_state(cfg, desc_dim=desc_dim, device=dev)
         outs = []
-        for c in chunks[: n // CHUNK]:
+        for c in chunks:
             state, out = run(state, c)
             outs.append(out)
         torch.cuda.synchronize()
-        return run, state, outs
+        return outs
 
     # the SuperPoint path's ATE is the draws': a pass at each seed of
     # SP_SEEDS, held each at the gross bound and together by their median
@@ -1679,9 +1606,7 @@ def phase_learned(torch, dev, card, scene, u8, name: str):
     for seed in seeds:
         cfg = base_cfg.replace(seed=seed)
         zero_launches()
-        t0 = time.perf_counter()
-        run, state, outs = run_pass(cfg)
-        first_s = time.perf_counter() - t0
+        outs = run_pass(cfg)
         launches = read_launches()
         est = torch.cat([o.T_wc for o in outs])[:, :3, 3].cpu().numpy()
         resets = int(sum(int(o.did_reset.sum()) for o in outs))
@@ -1689,8 +1614,8 @@ def phase_learned(torch, dev, card, scene, u8, name: str):
         ate = float(ate_rmse(est[8:], scene.gt_positions[8 : len(est)], align="sim3"))
         ates.append(ate)
         log(f"{name} path, seed {seed}: {N_FRAMES} frames, {cfg.padded_keypoints} slots, resets "
-            f"{resets}, keyframes {keyframes}, sim3 ATE {ate:.6f} m, launches {launches}, first "
-            f"pass {first_s:.2f} s")
+            f"{resets}, keyframes {keyframes}, sim3 ATE {ate:.6f} m, launches {launches}; "
+            f"on {card}")
         check(bool(np.isfinite(est).all()), f"{name} path produced non-finite poses")
         check(resets == 0, f"{name} path reset {resets} times at seed {seed}")
         limit = gross if sp else AT_ATE_LIMIT
@@ -1704,42 +1629,6 @@ def phase_learned(torch, dev, card, scene, u8, name: str):
             f"median {np.median(ates):.6f} m (limit {limit:.6f} m, {SEED_MEDIAN_FACTOR:g} x the "
             f"JAX package's CPU median over seeds 0-7; every pass under {gross:.3f} m)")
         check(np.median(ates) <= limit, f"{name} path: median ATE over the seed set")
-
-    # device busy time of the stages on the first chunk, a frame's share
-    feats = run.extract(chunks[0])
-    if sp:
-        model, thr = run.extract.model, run.extract.threshold
-        x = _pad_to_multiple(chunks[0].float() * (1.0 / 255.0))
-        with torch.no_grad():
-            heat, desc = superpoint_heads(model, x)
-            t_net = busy_ms(torch, lambda: superpoint_heads(model, x))
-            t_sel = busy_ms(torch, lambda: [
-                select_keypoints(heat[i], desc[i], cfg.padded_keypoints, thr)
-                for i in range(CHUNK)])
-        stages = (f"network (B={CHUNK}, bf16) {t_net / CHUNK:.4f} ms/frame, keypoint "
-                  f"selection {t_sel / CHUNK:.4f} ms/frame")
-    else:
-        t_ext = busy_ms(torch, lambda: run.extract(chunks[0]))
-        stages = f"SIFT extraction {t_ext / CHUNK:.4f} ms/frame"
-    t_match = busy_ms(torch, lambda: run.step.match(state.keyframe, feats[1]))
-    # the VO step alone, host clock over the first TIMED_FRAMES frames (it
-    # reads branch scalars back, so it cannot be queued behind a spin)
-    all_feats = [f for c in chunks[: TIMED_FRAMES // CHUNK] for f in run.extract(c)]
-    st = init_state(cfg, desc_dim=desc_dim, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for f in all_feats:
-        st, _ = run.step(st, f)
-    torch.cuda.synchronize()
-    t_step = (time.perf_counter() - t0) * 1e3 / TIMED_FRAMES
-    del all_feats, st
-
-    t0 = time.perf_counter()
-    run_pass(cfg, TIMED_FRAMES)
-    dt = time.perf_counter() - t0
-    log(f"{name} path device busy times: {stages}, matcher {t_match:.4f} ms/frame; VO step "
-        f"alone {t_step:.2f} ms/frame (wall); second pass {TIMED_FRAMES / dt:.3f} frames/s "
-        f"({dt:.3f} s for {TIMED_FRAMES} frames); on {card}")
 
 
 def phase_engine_superpoint(torch, dev, scene, u8):
@@ -1771,22 +1660,6 @@ def count_syncs(torch, fn):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     return out, len(caught)
-
-
-def busy_share(torch, fn) -> tuple[float, float]:
-    """(device busy ms, wall ms) of one call of `fn` under torch.profiler:
-    the union of its kernels' intervals, and the host clock around it."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-    check(len(kernels) > 0, "the profiler recorded no device time")
-    return union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3, wall
 
 
 def phase_patches_klt(torch, dev, card, u8):
@@ -1860,40 +1733,24 @@ def phase_klt(torch, dev, card, scene, u8):
     chunks = [torch.as_tensor(u8[i : i + CHUNK]).to(dev) for i in range(0, N_FRAMES, CHUNK)]
     extract = make_batched_extract_fn(cfg, device=dev)
 
-    def run_pass(count=False, seed=cfg.seed, n=N_FRAMES):
-        """One pass over the first `n` frames; with `count`, each step's
-        host syncs, and chunk 1's steps (all tracking frames) under the
-        profiler in their place: (outs, syncs, (busy ms, wall ms))."""
+    def run_pass(seed):
         step = make_klt_step_fn(cfg.replace(seed=seed), scene.K, hw, device=dev)
         state = init_klt_state(cfg, hw, device=dev)
-        outs, syncs, busy = [], [], None
-
-        def steps(c, feats):
-            nonlocal state
-            for img, f in zip(c, feats):
+        outs = []
+        for c in chunks:
+            for img, f in zip(c, extract(c)):
                 state, out = step(state, img, f)
                 outs.append(out)
-
-        for k, c in enumerate(chunks[: n // CHUNK]):
-            feats = extract(c)
-            if count and k == 1:
-                busy = busy_share(torch, lambda: steps(c, feats))
-            elif count:
-                for img, f in zip(c, feats):
-                    syncs.append(count_syncs(torch, lambda: steps([img], [f]))[1])
-            else:
-                steps(c, feats)
         torch.cuda.synchronize()
-        return outs, syncs, busy
+        return outs
 
     # the path's ATE is the draws': a pass at each seed of KLT_SEEDS, each
     # held at the per-pass checks and the gross bound, their ATEs by median
     gross = SEED_GROSS_SHARE * path_length(scene.gt_positions[8:])
-    ates, busy = [], None
+    ates = []
     for seed in KLT_SEEDS:
         zero_launches()
-        outs, syncs, profiled = run_pass(count=seed == KLT_SEEDS[0], seed=seed)
-        busy = profiled or busy
+        outs = run_pass(seed)
         launches, routes = read_launches(), read_routes()
         est = torch.stack([o.T_wc for o in outs])[:, :3, 3].cpu().numpy()
         resets = int(sum(bool(o.did_reset) for o in outs))
@@ -1909,9 +1766,7 @@ def phase_klt(torch, dev, card, scene, u8):
             f"{inited.index(True) if any(inited) else None}, resets {resets}, tracking at the end "
             f"{inited[-1]}, sim3 ATE {ate:.6f} m, median tracked "
             f"{float(np.median(tracked[1:])):.0f}, promoted {promoted}, launches {launches} "
-            f"(K2 routes {routes})" + (f", host syncs a frame in the step {np.mean(syncs):.2f} "
-                                       f"(tracking frames {np.mean(syncs[2:]):.2f}; chunk 1 under "
-                                       f"the profiler)" if syncs else ""))
+            f"(K2 routes {routes}); on {card}")
         check(bool(np.isfinite(est).all()), "KLT path produced non-finite poses")
         check(resets == 0, f"KLT path reset {resets} times at seed {seed}")
         check(inited[-1], f"KLT path is not tracking on the last frame at seed {seed}")
@@ -1925,14 +1780,6 @@ def phase_klt(torch, dev, card, scene, u8):
         f"{np.median(ates):.6f} m (limit {limit:.6f} m, {SEED_MEDIAN_FACTOR:g} x the JAX "
         f"package's CPU median over seeds 0-7; every pass under {gross:.3f} m)")
     check(np.median(ates) <= limit, "KLT path: median ATE over the seed set")
-
-    t0 = time.perf_counter()
-    run_pass(n=TIMED_FRAMES)
-    dt = time.perf_counter() - t0
-    log(f"KLT path: second pass {TIMED_FRAMES / dt:.3f} frames/s ({dt:.3f} s for "
-        f"{TIMED_FRAMES} frames); one tracking chunk of {CHUNK} (the first pass's chunk 1) "
-        f"under the profiler: device busy {busy[0]:.1f} of {busy[1]:.1f} ms wall "
-        f"({busy[0] / busy[1]:.1%}); on {card}")
     return klt_launches
 
 
@@ -2009,10 +1856,8 @@ def phase_ba_solve(torch, dev, card):
     c0, c1 = float(ba_cost(prob)), float(ba_cost(solved))
     dT = float((solved.T_cw.cpu() - ref.T_cw).abs().max())
     dX = float((solved.X.cpu() - ref.X).abs().max())
-    busy = busy_ms(torch, lambda: ba_solve(prob, iters=8, damping=1e-4))
     log(f"ba_solve, 20 keyframes x 5120 landmarks, 8 iterations: cost {c0:.3f} -> {c1:.3e} "
-        f"px^2; against the CPU run: poses {dT:.2e}, landmarks {dX:.2e} m; device busy "
-        f"{busy:.4f} ms; on {card}")
+        f"px^2; against the CPU run: poses {dT:.2e}, landmarks {dX:.2e} m; on {card}")
     check(c1 < 1e-3 * c0, f"ba_solve cost did not fall: {c0} -> {c1}")
     check(dT <= BA_SOLVE_T_TOL and dX <= BA_SOLVE_X_TOL,
           f"ba_solve on the card disagrees with the CPU: {dT:.3e}, {dX:.3e}")
@@ -2030,26 +1875,21 @@ def phase_main_ba(torch, dev, card, scene, u8):
     carry = (init_state(cfg, desc_dim=128, device=dev), init_window(cfg, device=dev))
     outs, counts = [], []
     zero_launches()
-    t0 = time.perf_counter()
     for c in chunks:
         carry, out = run(carry, c)
         outs.append(out)
         counts.append(int(carry[1].count))
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
     launches = read_launches()
     est = torch.cat([o.T_wc for o in outs])[:, :3, 3].cpu().numpy()
     resets = int(sum(int(o.did_reset.sum()) for o in outs))
     keyframes = int(sum(int(o.is_keyframe.sum()) for o in outs))
     ate = _fixture_ate(est, scene.gt_positions)
     solves = run.ba.solves
-    feats = run.extract(chunks[-1])
-    busy = busy_ms(torch, lambda: run.ba(carry[0], carry[1], feats, outs[-1]))
     log(f"main path with in-loop BA: {N_FRAMES} frames, resets {resets}, keyframes {keyframes} "
         f"(JAX CPU {BA_JAX_CPU_KEYFRAMES}), window count after each chunk {counts}, BA solves "
         f"{solves}, sim3 ATE {ate:.6f} m (JAX CPU {BA_JAX_CPU_ATE} m), launches "
-        f"{launches}, {N_FRAMES / dt:.3f} frames/s first pass; one chunk's BA device busy "
-        f"{busy:.4f} ms; on {card}")
+        f"{launches}; on {card}")
     check(bool(np.isfinite(est).all()), "main path with BA produced non-finite poses")
     check(resets == 0, f"main path with BA reset {resets} times")
     check(abs(keyframes - BA_JAX_CPU_KEYFRAMES) <= BA_KF_MARGIN,
@@ -2183,12 +2023,12 @@ def phase_match_lanes(torch, dev, card) -> dict:
     t_l = time_ms(torch, library)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     splits = m._splits(n0, n1, sms, B)
-    t_ops = B * 3.0 * 2.0 * n0 * n1 * d / PEAK_TF32_FLOPS
-    t_bytes = B * ((n0 + n1) * d * 4 + n1 + n0 * 12 + 2 * splits * n0 * 12) / PEAK_BYTES
-    b_ms = max(t_ops, t_bytes) * 1e3
+    b_ms, b_by = bound_ms(B * 3.0 * 2.0 * n0 * n1 * d,
+                          B * ((n0 + n1) * d * 4 + n1 + n0 * 12 + 2 * splits * n0 * 12),
+                          PEAK_TF32_FLOPS)
     log(f"K1 with {B} lanes at {n0} x {n1} x {d}: one launch {t_k:.4f} ms, {B} 2-D launches "
         f"{t_2d:.4f} ms, plain {t_p:.4f} ms, library {t_l:.4f} ms (batched cdist + topk), bound "
-        f"{b_ms:.4f} ms ({'operations' if t_ops > t_bytes else 'bytes'}), {b_ms / t_k:.1%} of the "
+        f"{b_ms:.4f} ms ({b_by}), {b_ms / t_k:.1%} of the "
         f"bound, {splits} split(s) a lane, max abs err {err:.3e}, on {card}")
     return dict(B=B, shape=[n0, n1, d], ms=t_k, two_d_ms=t_2d, plain_ms=t_p, library_ms=t_l,
                 bound_ms=b_ms, splits=splits, max_abs_err=err)
@@ -2200,9 +2040,8 @@ def phase_multiseq(torch, dev, card, scene, u8, main):
     extracted together, then the multi-sequence step runs frame by frame.
     At B = 1, 2, 4: counts zeroed before the pass and read after, the main
     path's limits on every lane, host syncs per tracking frame, and a second
-    pass over the first MULTISEQ_REPEAT_FRAMES frames (bit-equal to the
-    first pass there; its aggregate frames/s) and a tracking window's device
-    busy share."""
+    pass over the first MULTISEQ_REPEAT_FRAMES frames, bit-equal to the
+    first pass there."""
     from visualodometry_tpu_torch import config_from_dict
     from visualodometry_tpu_torch.frontend.sift import make_batched_extract_fn
     from visualodometry_tpu_torch.parallel import init_batched_state, make_multiseq_step_fn
@@ -2210,7 +2049,6 @@ def phase_multiseq(torch, dev, card, scene, u8, main):
 
     cfg = config_from_dict(BENCH_CFG)
     extract = make_batched_extract_fn(cfg, device=dev)
-    summary = {}
     for B in MULTISEQ_LANES:
         seqs = np.stack([np.clip(u8.astype(np.int16) + 5 * b, 0, 255).astype(np.uint8)
                          for b in range(B)], axis=1)  # (F, B, H, W)
@@ -2223,39 +2061,34 @@ def phase_multiseq(torch, dev, card, scene, u8, main):
                     yield stack_states(feats[f * B : (f + 1) * B])
 
         def run_pass(count=False, n=N_FRAMES):
-            """With `count`, each frame's host syncs, and the two frames of
-            MULTISEQ_PROFILED under the profiler in their place (None)."""
+            """With `count`, each frame's host syncs."""
             step = make_multiseq_step_fn(cfg, scene.K, device=dev)
             state = init_batched_state(cfg, 128, B, device=dev)
-            outs, syncs, busy = [], [], [0.0, 0.0]
+            outs, syncs = [], []
 
             def one(feats):
                 nonlocal state
                 state, out = step(state, feats)
                 outs.append(out)
 
-            for i, feats in enumerate(frames(n)):
-                if count and i in MULTISEQ_PROFILED:
-                    busy = [a + b for a, b in zip(busy, busy_share(torch, lambda: one(feats)))]
-                    syncs.append(None)
-                elif count:
+            for feats in frames(n):
+                if count:
                     syncs.append(count_syncs(torch, lambda: one(feats))[1])
                 else:
                     one(feats)
             torch.cuda.synchronize()
-            return outs, syncs, busy
+            return outs, syncs
 
         zero_launches()
-        outs, syncs, (busy, wall) = run_pass(count=True)
+        outs, syncs = run_pass(count=True)
         launches = read_launches()
         T = torch.stack([o.T_wc for o in outs]).cpu().numpy()  # (F, B, 4, 4)
         resets = torch.stack([o.did_reset for o in outs]).sum(0).tolist()
         keyframes = torch.stack([o.is_keyframe for o in outs]).sum(0).tolist()
         inited = torch.stack([o.initialized for o in outs]).cpu().numpy()
         ates = [_fixture_ate(T[:, b, :3, 3], scene.gt_positions) for b in range(B)]
-        # a tracking frame: every lane was tracking before it (the profiled
-        # frames' syncs are not counted)
-        tracking = [f for f in range(1, N_FRAMES) if inited[f - 1].all() and syncs[f] is not None]
+        # a tracking frame: every lane was tracking before it
+        tracking = [f for f in range(1, N_FRAMES) if inited[f - 1].all()]
         sync_max = max(syncs[f] for f in tracking)
         want = {"match_top2": N_FRAMES, "extract_patches": 3 * N_FRAMES * B, "blur_stack": 0}
         log(f"multi-sequence, B={B}: resets {resets}, keyframes {keyframes}, sim3 ATE per lane "
@@ -2276,39 +2109,10 @@ def phase_multiseq(torch, dev, card, scene, u8, main):
                   "lane 0 keyframes differ from the main path's by more than 3")
 
         n = MULTISEQ_REPEAT_FRAMES
-        t0 = time.perf_counter()
-        again, _, _ = run_pass(n=n)
-        dt = time.perf_counter() - t0
-        same = repeats(torch, outs[:n], again)
+        same = repeats(torch, outs[:n], run_pass(n=n)[0])
         log(f"multi-sequence, B={B}: second pass over frames 0-{n - 1}: T_wc, resets and "
-            f"keyframes bit-equal to the first pass's: {same}")
+            f"keyframes bit-equal to the first pass's: {same}; on {card}")
         check(same, f"multi-sequence B={B}: the second pass differs from the first")
-        summary[B] = dict(fps=B * n / dt, busy=busy / wall)
-        log(f"multi-sequence, B={B}: second pass {B * n / dt:.3f} frames/s aggregate "
-            f"({dt:.3f} s for {B} x {n} frames); two tracking frames of the first pass "
-            f"({list(MULTISEQ_PROFILED)}) under the profiler: "
-            f"device busy {busy:.1f} of {wall:.1f} ms wall ({busy / wall:.1%}); on {card}")
-    return summary
-
-
-def _allreduce_ms(torch, dev, group, numel: int, reps: int = 20) -> float:
-    """Host-clock ms of one all-reduce of `numel` float32 on `dev` over
-    `group`, averaged over `reps`."""
-    import torch.distributed as dist
-
-    buf = torch.ones(numel, device=dev)
-    dist.all_reduce(buf, group=group)
-    _sync(torch, dev)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        dist.all_reduce(buf, group=group)
-    _sync(torch, dev)
-    return (time.perf_counter() - t0) * 1e3 / reps
-
-
-def _sync(torch, dev):
-    if torch.device(dev).type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def ba_split_reference(prob, blocks: int, iters: int, damping: float):
@@ -2341,7 +2145,7 @@ def ba_split_reference(prob, blocks: int, iters: int, damping: float):
 def _distributed_ba(torch, dev, mesh) -> dict:
     """`ba_solve_distributed` on bench.py's 20 x 5120 problem against
     `ba_solve` and against the same landmark blocks summed in one process
-    on the same card; the all-reduce's time per iteration."""
+    on the same card."""
     from visualodometry_tpu_torch.ba import ba_solve
     from visualodometry_tpu_torch.parallel import ba_solve_distributed
 
@@ -2349,17 +2153,10 @@ def _distributed_ba(torch, dev, mesh) -> dict:
     ref = ba_solve(prob, iters=8, damping=1e-4)
     T_blk, X_blk = ba_split_reference(prob, mesh.shape["map"], 8, 1e-4)
     out = ba_solve_distributed(prob, mesh, iters=8, damping=1e-4)
-    _sync(torch, dev)
-    t0 = time.perf_counter()
-    ba_solve_distributed(prob, mesh, iters=8, damping=1e-4)
-    _sync(torch, dev)
-    wall = (time.perf_counter() - t0) * 1e3
-    P = prob.T_cw.shape[0]
     return dict(dT=float((out.T_cw - ref.T_cw).abs().max()),
                 dX=float((out.X - ref.X).abs().max()),
                 dT_blocks=float((out.T_cw - T_blk).abs().max()),
-                dX_blocks=float((out.X - X_blk).abs().max()), solve_ms=wall,
-                allreduce_ms=_allreduce_ms(torch, dev, mesh.group("map"), P * P * 36 + P * 6))
+                dX_blocks=float((out.X - X_blk).abs().max()))
 
 
 def _gloo_rank(rank: int, world: int, port: int, queue, device: str):
@@ -2447,8 +2244,7 @@ def phase_distributed_ba(torch, dev, card):
         log(f"ba_solve_distributed, 20 x 5120, 8 iterations, {what}: against ba_solve poses "
             f"{r['dT']:.2e}, landmarks {r['dX']:.2e} m (limits {t_tol:g}, {x_tol:g}); against "
             f"the same landmark blocks summed in one process poses {r['dT_blocks']:.2e}, "
-            f"landmarks {r['dX_blocks']:.2e} m; solve {r['solve_ms']:.2f} ms wall, one all-reduce "
-            f"of the reduced system {r['allreduce_ms']:.4f} ms (host clock); on {card}")
+            f"landmarks {r['dX_blocks']:.2e} m; on {card}")
         check(r["dT_blocks"] == 0.0 and r["dX_blocks"] == 0.0,
               f"ba_solve_distributed ({what}) is not the block sums' arithmetic")
         check(r["dT"] <= t_tol and r["dX"] <= x_tol,
@@ -2516,34 +2312,19 @@ def phase_train_data(torch, dev, card, record: dict):
     return pool, data_h, data_vo
 
 
-def _train_loop(torch, dev, card, name, step, make_batch, cpu_loss, flops_of, kind_names):
+def _train_loop(torch, card, name, step, make_batch, cpu_loss, kind_names):
     """TRAIN_STEPS steps of `step` on batches made by `make_batch(i)` on a
     producer thread. Step 0's loss and terms are held against `cpu_loss`
     (the same weights on the CPU, the same batch) at TRAIN_STEP0_RTOL; every
-    loss finite; the mean of the last 5 below that of the first 5. Prints
-    steps/s, host batch ms, device step ms (profiler busy time of one step
-    of each batch kind), busy share, peak memory and FLOP/s against the
-    float32 CUDA-core peak (TF32 is off). Even and odd steps take the two
-    batch kinds `kind_names`."""
+    loss finite; the mean of the last 5 below that of the first 5. Even and
+    odd steps take the two batch kinds `kind_names`."""
     from visualodometry_tpu_torch.data.prefetch import PrefetchLoader
 
-    host_ms = {}
-
-    def timed_batch(i):
-        t0 = time.perf_counter()
-        b = make_batch(i)
-        host_ms[i] = (time.perf_counter() - t0) * 1e3
-        return b
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    losses, last = [], {}
-    for i, b in enumerate(PrefetchLoader(range(TRAIN_STEPS), depth=4, decode=timed_batch)):
+    losses = []
+    for i, b in enumerate(PrefetchLoader(range(TRAIN_STEPS), depth=4, decode=make_batch)):
         if i == 0:
             with torch.no_grad():
                 ref = [float(x) for x in (lambda r: (r[0], *r[1]))(cpu_loss(b))]
-        if i == TRAIN_RATE_FROM:
-            t_start = time.perf_counter()
         loss, aux = step(b)
         if i == 0:
             got = [loss.item(), *(a.item() for a in aux)]
@@ -2553,48 +2334,14 @@ def _train_loop(torch, dev, card, name, step, make_batch, cpu_loss, flops_of, ki
                 f"largest relative difference {rel:.2e} (limit {TRAIN_STEP0_RTOL:g})")
             check(rel <= TRAIN_STEP0_RTOL, f"{name}: step 0 on the card differs from the CPU")
         losses.append(torch.stack([loss, *aux]))
-        last[i % 2] = b
-    torch.cuda.synchronize()
-    steps_s = (TRAIN_STEPS - TRAIN_RATE_FROM) / (time.perf_counter() - t_start)
-    peak = torch.cuda.max_memory_allocated(dev)
     curve = torch.stack(losses).cpu().numpy()
     check(bool(np.isfinite(curve).all()), f"{name}: a loss is not finite")
     first, final = float(curve[:5, 0].mean()), float(curve[-5:, 0].mean())
     log(f"{name}: losses {[round(float(x), 4) for x in curve[:, 0]]}; mean of the first 5 "
         f"{first:.4f}, of the last 5 {final:.4f}; by batch kind, first and last: "
         + ", ".join(f"{kind} {curve[k::2, 0][0]:.4f} -> {curve[k::2, 0][-1]:.4f}"
-                    for k, kind in enumerate(kind_names)))
+                    for k, kind in enumerate(kind_names)) + f"; on {card}")
     check(final < first, f"{name}: the loss did not fall over {TRAIN_STEPS} steps")
-
-    kinds = {}
-    for kind, b in sorted(last.items()):
-        flops = flops_of(b)
-        busy, wall = busy_share(torch, lambda: step(b))
-        kinds[kind_names[kind]] = dict(flops=flops, busy_ms=busy, wall_ms=wall)
-    busy_mean = float(np.mean([k["busy_ms"] for k in kinds.values()]))
-    flops_mean = float(np.mean([k["flops"] for k in kinds.values()]))
-    batch_ms = float(np.median(list(host_ms.values())))
-    rate = flops_mean / (busy_mean / 1e3)
-    log(f"{name}: {steps_s:.3f} steps/s over steps {TRAIN_RATE_FROM}-{TRAIN_STEPS - 1}; host batch "
-        f"{batch_ms:.1f} ms (median, producer thread); device step "
-        + ", ".join(f"{kind} {k['busy_ms']:.2f} ms busy of {k['wall_ms']:.2f} ms wall "
-                    f"({k['flops'] / 1e12:.3f} TFLOP)" for kind, k in kinds.items())
-        + f" by batch kind; device busy {busy_mean * steps_s / 1e3:.1%} of the loop's wall "
-        f"time; peak memory {peak / 2**30:.2f} GiB; {rate / 1e12:.2f} TFLOP/s, "
-        f"{rate / PEAK_F32_FLOPS:.1%} of the 67 TFLOP/s float32 CUDA-core peak; on {card}")
-    return dict(kinds=kinds, steps_s=steps_s, host_batch_ms=batch_ms, device_step_ms=busy_mean,
-                busy_share=busy_mean * steps_s / 1e3, peak_gib=peak / 2**30,
-                tflops=rate / 1e12, loss_first5=first, loss_last5=final)
-
-
-def _flops(torch, loss_of, params) -> float:
-    """FLOPs of one loss and its gradient, counted from the operators'
-    shapes (convolutions and products, forward and backward)."""
-    from torch.utils.flop_counter import FlopCounterMode
-
-    with FlopCounterMode(display=False) as counter:
-        torch.autograd.grad(loss_of(), params, allow_unused=True)
-    return float(counter.get_total_flops())
 
 
 def phase_train_superpoint(torch, dev, card, pool):
@@ -2605,7 +2352,7 @@ def phase_train_superpoint(torch, dev, card, pool):
     from visualodometry_tpu_torch.models import weights
     from visualodometry_tpu_torch.models.optim import Adam, cosine_decay_schedule
     from visualodometry_tpu_torch.models.superpoint import SuperPointDense
-    from visualodometry_tpu_torch.models.train_superpoint import batch_to, load_params
+    from visualodometry_tpu_torch.models.train_superpoint import load_params
     from visualodometry_tpu_torch.models.train_superpoint_dense import (
         loss_fn_dense,
         make_train_step_dense,
@@ -2621,12 +2368,10 @@ def phase_train_superpoint(torch, dev, card, pool):
     step = make_train_step_dense(
         model, Adam(params, cosine_decay_schedule(TRAIN_SP_LR, TRAIN_STEPS, alpha=0.05)))
     prng = np.random.default_rng(5)
-    return _train_loop(
-        torch, dev, card, "SuperPointDense trainer",
+    _train_loop(
+        torch, card, "SuperPointDense trainer",
         step, lambda i: recipe_batch(prng, pool, i, TRAIN_STEPS, TRAIN_SP_BATCH, TRAIN_SP_HW),
-        lambda b: loss_fn_dense(cpu_model, b),
-        lambda b: _flops(torch, lambda: loss_fn_dense(model, batch_to(b, dev))[0], params),
-        ("VO pairs", "homography pairs"))
+        lambda b: loss_fn_dense(cpu_model, b), ("VO pairs", "homography pairs"))
 
 
 def phase_train_matcher(torch, dev, card, data_h, data_vo):
@@ -2646,7 +2391,6 @@ def phase_train_matcher(torch, dev, card, data_h, data_vo):
         make_matcher_step,
         matcher_loss_deep,
     )
-    from visualodometry_tpu_torch.models.train_superpoint import batch_to
 
     n = TRAIN_HELD_OUT
     test_h, train_h = ({k: v[:n] for k, v in data_h.items()}, {k: v[n:] for k, v in data_h.items()})
@@ -2668,10 +2412,9 @@ def phase_train_matcher(torch, dev, card, data_h, data_vo):
             return sample_batch(train_h, rng, TRAIN_H_BATCH)
         return vo_match_batch(train_vo, rng, TRAIN_VO_BATCH, TRAIN_VO_SLOTS)
 
-    res = _train_loop(
-        torch, dev, card, "attention-matcher trainer (v3 shapes)",
+    _train_loop(
+        torch, card, "attention-matcher trainer (v3 shapes)",
         lambda b: (step(b), ()), make, lambda b: (matcher_loss_deep(cpu_model, b), ()),
-        lambda b: _flops(torch, lambda: matcher_loss_deep(model, batch_to(b, dev)), params),
         (f"homography {TRAIN_H_BATCH} x 512", f"VO {TRAIN_VO_BATCH} x {TRAIN_VO_SLOTS}"))
     prec_h, rec_h = evaluate(model, sample_batch(test_h, rng, n))
     prec_vo, rec_vo = evaluate_adaptive(model, test_vo, prune_to=1024, exit_conf=0.95)
@@ -2679,7 +2422,6 @@ def phase_train_matcher(torch, dev, card, data_h, data_vo):
         f"{prec_h:.3f} recall {rec_h:.3f}; VO at 4096 slots through adaptive_match (pruning to "
         f"1024, exit at 0.95) precision {prec_vo:.3f} recall {rec_vo:.3f}")
     check(rec_h > 0 and rec_vo > 0, "the trained matcher matches nothing held out")
-    return dict(res, precision_h=prec_h, recall_h=rec_h, precision_vo=prec_vo, recall_vo=rec_vo)
 
 
 def _dp_rank(rank: int, world: int, port: int, queue, device: str, state, arrays):
@@ -2726,9 +2468,7 @@ def _dp_step(torch, dev, state, arrays, mesh):
     grads = torch.autograd.grad(loss_fn(model, batch_to(local, dev))[0], list(model.parameters()))
     opt = Adam(model.parameters(), TRAIN_DP_LR)
     loss, _ = make_train_step(model, opt, group=mesh.group("seq"))(local)
-    numel = sum(p.numel() for p in model.parameters()) + 1
     return dict(loss=loss.item(), local=[g.cpu().numpy() for g in grads],
-                allreduce_ms=_allreduce_ms(torch, dev, mesh.group("seq"), numel),
                 exp_avg=[m.cpu().numpy() for m in opt.exp_avg],
                 params=[p.detach().cpu().numpy() for p in model.parameters()])
 
@@ -2778,13 +2518,10 @@ def phase_train_dp(torch, dev, card):
             np.array_equal(a.detach().cpu().numpy(), b)
             for a, b in zip(list(plain.parameters()) + opt.exp_avg, one["params"] + one["exp_avg"]))
         log(f"data-parallel step, one rank under {spec.backend}: bit-equal to the step without a "
-            f"process group: {same} (loss {one['loss']:.6f}); the step's all-reduce (one flat "
-            f"buffer of the gradients and the loss) {one['allreduce_ms']:.3f} ms, host clock")
+            f"process group: {same} (loss {one['loss']:.6f})")
         check(same, "the one-rank data-parallel step differs from the plain step")
 
-        t0 = time.perf_counter()
         res = spawn_ranks(_dp_rank, 2, str(dev), state, arrays)
-        wall = time.perf_counter() - t0
         r0, r1 = res[0], res[1]
         ranks_equal = all(np.array_equal(a, b) for a, b in zip(r0["params"] + r0["exp_avg"],
                                                                r1["params"] + r1["exp_avg"]))
@@ -2805,12 +2542,11 @@ def phase_train_dp(torch, dev, card):
                                         list(halves.parameters()))
             halves_exact &= all(np.array_equal(g.cpu().numpy(), x)
                                 for g, x in zip(grads, r["local"]))
-        log(f"data-parallel step, two gloo ranks sharing the card ({wall:.1f} s with spawning): "
+        log(f"data-parallel step, two gloo ranks sharing the card: "
             f"ranks bit-equal after the step: {ranks_equal}; the all-reduced gradient is "
             f"(g0 + g1) / 2 of the ranks' halves, Adam on it giving their moments and parameters: "
             f"{mean_exact}; each half's gradient equal to this process's: {halves_exact}; mean "
-            f"loss {r0['loss']:.6f}; the all-reduce {r0['allreduce_ms']:.3f} ms (rank 0, host "
-            f"clock), on {card}")
+            f"loss {r0['loss']:.6f}, on {card}")
         check(ranks_equal and mean_exact and halves_exact,
               "the two-rank data-parallel step is not the one-process mean of the halves")
     finally:
@@ -2832,12 +2568,10 @@ def ring_holds(ids: np.ndarray, next_id: int) -> bool:
                 and (ids[live] >= next_id - m).all() and (ids[live] < next_id).all())
 
 
-def long_corridor_pass(torch, dev, fixture, seed: int, profile: bool = False) -> dict:
+def long_corridor_pass(torch, dev, fixture, seed: int) -> dict:
     """One pass of the long-corridor configuration with in-loop BA over the
     256 frames at RANSAC seed `seed`, counts zeroed before and read after;
-    returns its summary. With `profile`, the chunks of LONG_SYNC_CHUNKS count
-    their host syncs and chunk LONG_PROFILE_CHUNK runs under the profiler
-    (its busy share)."""
+    returns its summary."""
     from visualodometry_tpu_torch.ba.inloop import init_window
     from visualodometry_tpu_torch.core import init_state, make_chunked_pipeline_fn
     from visualodometry_tpu_torch.data.synthetic import segment_ate
@@ -2849,24 +2583,12 @@ def long_corridor_pass(torch, dev, fixture, seed: int, profile: bool = False) ->
     chunks = [torch.as_tensor(u8[i : i + CHUNK]).to(dev) for i in range(0, n, CHUNK)]
     run = make_chunked_pipeline_fn(cfg, K, device=dev, enable_ba=True)
     carry = (init_state(cfg, desc_dim=128, device=dev), init_window(cfg, device=dev))
-    outs, syncs, busy = [], [], None
-
-    def run_chunk(c):
-        nonlocal carry
+    outs = []
+    zero_launches()
+    for c in chunks:
         carry, out = run(carry, c)
         outs.append(out)
-
-    zero_launches()
-    t0 = time.perf_counter()
-    for k, c in enumerate(chunks):
-        if profile and k == LONG_PROFILE_CHUNK:
-            busy = busy_share(torch, lambda: run_chunk(c))
-        elif profile and k in LONG_SYNC_CHUNKS:
-            syncs.append(count_syncs(torch, lambda: run_chunk(c))[1])
-        else:
-            run_chunk(c)
     torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
     launches, routes = read_launches(), read_routes()
 
     T = torch.cat([o.T_wc for o in outs]).cpu().numpy()
@@ -2884,7 +2606,7 @@ def long_corridor_pass(torch, dev, fixture, seed: int, profile: bool = False) ->
     ids = carry[0].map.ids.cpu().numpy()
     next_id = int(carry[0].map.next_id)
     return dict(
-        seed=seed, frames=n, seconds=dt, finite=bool(np.isfinite(T).all()),
+        seed=seed, frames=n, finite=bool(np.isfinite(T).all()),
         reset_frames=reset_frames.tolist(), pre_blackout_resets=int(resets[:n_pre].sum()),
         initialized_at_end=bool(inited[-1]), keyframes=kf,
         segments=[(a, b, round(e, 4)) for a, b, e in segs], segment_pre=pre, segment_final=final,
@@ -2893,8 +2615,6 @@ def long_corridor_pass(torch, dev, fixture, seed: int, profile: bool = False) ->
         pre_blackout_ate=float(ate_rmse(est[8:n_pre], gt[8:n_pre], align="sim3")),
         next_id=next_id, capacity=len(ids), ring_holds=ring_holds(ids, next_id),
         ba_solves=run.ba.solves, launches=launches, routes=routes,
-        syncs_per_frame=float(np.mean(syncs)) / CHUNK if syncs else None,
-        busy_ms=busy[0] if busy else None, busy_wall_ms=busy[1] if busy else None,
     )
 
 
@@ -2943,20 +2663,14 @@ def phase_long_corridor(torch, dev, card, fixture) -> dict:
     # K2 once a frame for each octave on the patch route
     want = {"match_top2": len(u8), "extract_patches": len(shapes) * len(u8), "blur_stack": 0}
     passes = []
-    for i, seed in enumerate(LONG_SEEDS):
-        s = long_corridor_pass(torch, dev, (u8, gt, K, blank), seed, profile=i == 0)
+    for seed in LONG_SEEDS:
+        s = long_corridor_pass(torch, dev, (u8, gt, K, blank), seed)
         log(f"long corridor, seed {seed}: {s['frames']} frames, resets at {s['reset_frames']} "
             f"({s['pre_blackout_resets']} before the blackout), tracking at the end "
             f"{s['initialized_at_end']}, keyframes {s['keyframes']}, segments {s['segments']}, "
             f"pre-blackout ATE (8:144) {s['pre_blackout_ate']:.4f} m, next_id {s['next_id']} "
             f"into {s['capacity']} slots, ring invariants {s['ring_holds']}, BA solves "
-            f"{s['ba_solves']}, launches {s['launches']} (K2 routes {s['routes']}), "
-            f"{s['frames'] / s['seconds']:.3f} frames/s ({s['seconds']:.1f} s)"
-            + (f"; host syncs a tracking frame {s['syncs_per_frame']:.2f} (chunks "
-               f"{list(LONG_SYNC_CHUNKS)}), device busy "
-               f"{s['busy_ms']:.1f} of {s['busy_wall_ms']:.1f} ms wall in chunk "
-               f"{LONG_PROFILE_CHUNK} ({s['busy_ms'] / s['busy_wall_ms']:.1%}; the timing of "
-               f"this pass includes the profiling)" if i == 0 else "") + f"; on {card}")
+            f"{s['ba_solves']}, launches {s['launches']} (K2 routes {s['routes']}); on {card}")
         check_long_corridor_pass(s, blank, want)
         passes.append(s)
     pre_ate = [s["pre_blackout_ate"] for s in passes]

@@ -2,9 +2,9 @@
 tests/test_torch_train_dp.py.
 
 A module of its own, without JAX, so that each spawned process imports
-only torch, the port and chip_smoke.py (which imports neither JAX nor
-torch at its top). Every worker brings the runtime up on the CPU over
-gloo, does its part, puts its result on the queue and tears down.
+only torch, the port and chip_smoke.py (which imports no JAX). Every
+worker brings the runtime up on the CPU over gloo, does its part, puts its
+result on the queue and tears down.
 """
 
 import os

@@ -47,6 +47,26 @@ def test_kernel_sources_and_build_names():
         assert _build._lib_path(name).name.startswith(name + "-")
 
 
+def test_entry_point_signatures_match_the_sources():
+    """Every `extern "C"` function of csrc/ is declared in ENTRY_POINTS with
+    one ctypes type a parameter, in order: a pointer as c_void_p, an int as
+    c_int, a float as c_float."""
+    import ctypes
+    import re
+
+    kinds = {"*": ctypes.c_void_p, "int": ctypes.c_int, "float": ctypes.c_float}
+    assert set(_build.ENTRY_POINTS) == set(_build.KERNEL_SOURCES)
+    for name, declared in _build.ENTRY_POINTS.items():
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        found = dict(re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src))
+        assert set(found) == set(declared), name
+        for symbol, params in found.items():
+            types = [kinds["*" if "*" in p else p.split()[0]] for p in params.split(",")]
+            assert types == declared[symbol], symbol
+    with pytest.raises(KeyError):
+        _build.c_function("patches", "match_top2_launch")
+
+
 def test_match_top2_checks_inputs():
     d = torch.zeros(4, 8)
     with pytest.raises(TypeError):

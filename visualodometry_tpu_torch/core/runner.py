@@ -2,12 +2,13 @@
 
 Port of `make_chunked_step_fn`, `make_chunked_pipeline_fn` and
 `apply_pose_delta` from visualodometry_tpu/core/runner.py, with both
-frontends. `make_chunked_step_fn` steps precomputed features. SIFT: the pyramid
-stage runs once for the whole chunk (its band matmuls gain a batch axis),
-detection and description frame by frame. SuperPoint: the network runs
-once on the chunk's frames, keypoint selection frame by frame. The VO step
-then runs frame by frame, and with `enable_ba=True` each chunk ends with
-the windowed BA of ba/inloop.py.
+frontends. `make_chunked_step_fn` steps precomputed features;
+`make_chunked_pipeline_fn` extracts them from a chunk of images and steps
+them through it. SIFT: the pyramid stage runs once for the whole chunk
+(its band matmuls gain a batch axis), detection and description frame by
+frame. SuperPoint: the network runs once on the chunk's frames, keypoint
+selection frame by frame. The VO step then runs frame by frame, and with
+`enable_ba=True` each chunk ends with the windowed BA of ba/inloop.py.
 """
 
 from __future__ import annotations
@@ -86,7 +87,7 @@ def make_chunked_pipeline_fn(
     `run_chunk.ba` is that BA function.
     """
     dev = resolve_device(device)
-    step = make_step_fn(cfg, K, device=dev, matcher_params=matcher_params)
+    run_steps = make_chunked_step_fn(cfg, K, device=dev, matcher_params=matcher_params)
     if cfg.extractor_type == "superpoint":
         extract = make_batched_superpoint_extract_fn(cfg, device=dev)
     elif cfg.extractor_type == "sift":
@@ -94,21 +95,12 @@ def make_chunked_pipeline_fn(
     else:
         raise ValueError(f"make_chunked_pipeline_fn: no extractor {cfg.extractor_type!r}")
 
-    def run_steps(state: VOState, imgs):
-        feats = extract(torch.as_tensor(imgs).to(dev))
-        outs = []
-        for f in feats:
-            state, out = step(state, f)
-            outs.append(out)
-        return state, feats, stack_outputs(outs)
-
     if not enable_ba:
 
         def run_chunk(state: VOState, imgs) -> tuple[VOState, StepOutput]:
-            state, _, outs = run_steps(state, imgs)
-            return state, outs
+            return run_steps(state, extract(torch.as_tensor(imgs).to(dev)))
 
-        run_chunk.extract, run_chunk.step = extract, step
+        run_chunk.extract, run_chunk.step = extract, run_steps.step
         return run_chunk
 
     from visualodometry_tpu_torch.ba.inloop import make_ba_chunk_fn
@@ -117,11 +109,12 @@ def make_chunked_pipeline_fn(
 
     def run_chunk_ba(carry, imgs):
         state, win = carry
-        state, feats, outs = run_steps(state, imgs)
+        feats = extract(torch.as_tensor(imgs).to(dev))
+        state, outs = run_steps(state, feats)
         state, win, delta = ba_chunk(state, win, feats, outs)
         return (state, win), apply_pose_delta(outs, delta)
 
-    run_chunk_ba.extract, run_chunk_ba.step, run_chunk_ba.ba = extract, step, ba_chunk
+    run_chunk_ba.extract, run_chunk_ba.step, run_chunk_ba.ba = extract, run_steps.step, ba_chunk
     return run_chunk_ba
 
 

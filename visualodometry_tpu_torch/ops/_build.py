@@ -3,7 +3,9 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on its
 own by nvcc into `csrc/build/<name>-<hash>.so` (the hash is of the source,
 so an edited kernel rebuilds), then loaded with ctypes. `build_all` starts
-one nvcc per source, all at once, and waits for them.
+one nvcc per source, all at once, and waits for them. `ENTRY_POINTS` holds
+each C entry point's argument types; `load_library` declares them when it
+loads a library, and `c_function` hands the wrappers a declared function.
 
 Nothing here runs at import: the CPU-only test machine has no nvcc.
 """
@@ -24,6 +26,24 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 KERNEL_SOURCES = ("match_top2", "patches", "blur_stack", "small_eig", "pose_polish")
+
+# The C entry points of each source and their argument types, in the order
+# of the C declarations; every one returns an int (a CUDA error code, or
+# for the queries the answer).
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+ENTRY_POINTS = {
+    "match_top2": {"match_top2_launch": [_P] * 7 + [_I] * 5 + [_P]},
+    "patches": {
+        "patches_launch": [_P] * 5 + [_I] * 6 + [_P],
+        "patches_tma_route": [_I] * 3 + [_P] * 2,
+    },
+    "blur_stack": {
+        "blur_stack_launch": [_P] * 3 + [_I] * 6 + [_P],
+        "blur_stack_variant": [_I] * 2,
+    },
+    "small_eig": {"small_eig_launch": [_P] * 2 + [_I] * 3 + [_P]},
+    "pose_polish": {"pose_polish_launch": [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P]},
+}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -76,13 +96,25 @@ def build_all(names=KERNEL_SOURCES) -> None:
 
 
 def load_library(name: str) -> ctypes.CDLL:
-    """The loaded shared library for `csrc/<name>.cu`, built if needed."""
+    """The loaded shared library for `csrc/<name>.cu`, built if needed, its
+    entry points declared as `ENTRY_POINTS` says."""
     lib = _LIBS.get(name)
     if lib is None:
         _finish_build(name, _start_build(name))
         lib = ctypes.CDLL(str(_lib_path(name)))
+        for symbol, argtypes in ENTRY_POINTS[name].items():
+            fn = getattr(lib, symbol)
+            fn.restype, fn.argtypes = ctypes.c_int, argtypes
         _LIBS[name] = lib
     return lib
+
+
+def c_function(name: str, symbol: str):
+    """The C entry point `symbol` of `csrc/<name>.cu`, declared and ready to
+    call (the library loaded, and built, at the first call)."""
+    if symbol not in ENTRY_POINTS[name]:
+        raise KeyError(f"{symbol} is not an entry point of {name}.cu")
+    return getattr(load_library(name), symbol)
 
 
 def current_stream_handle(device) -> int:

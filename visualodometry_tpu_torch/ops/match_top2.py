@@ -24,8 +24,6 @@ computed exactly as its own 2-D call would be.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from visualodometry_tpu_torch.ops import _build
@@ -136,11 +134,7 @@ def match_top2(desc0: torch.Tensor, desc1: torch.Tensor, valid1: torch.Tensor):
     splits = _splits(n0, n1, sms, lanes)
     # the blocks' partial best, second (float32) and argbest (int32) words
     scratch = torch.empty(3 * lanes * splits * n0, dtype=torch.int32, device=desc0.device)
-    lib = _build.load_library("match_top2")
-    fn = lib.match_top2_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    err = fn(
+    err = _build.c_function("match_top2", "match_top2_launch")(
         desc0.data_ptr(), desc1.data_ptr(), valid_u8.data_ptr(),
         best.data_ptr(), second.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
         n0, n1, d, splits, lanes, _build.current_stream_handle(desc0.device),

@@ -11,8 +11,6 @@ taken, and an out-of-bounds one raises.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from visualodometry_tpu_torch.ops import _build
@@ -83,19 +81,13 @@ def extract_patches(
     # before the launch reads it
     lvl, y0, x0 = lvl.contiguous(), y0.contiguous(), x0.contiguous()
     out = torch.empty((K, patch_y, patch_x), dtype=torch.int32, device=field.device)
-    lib = _build.load_library("patches")
-    fn = lib.patches_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    err = fn(
+    err = _build.c_function("patches", "patches_launch")(
         field.data_ptr(), lvl.data_ptr(), y0.data_ptr(), x0.data_ptr(),
         out.data_ptr(), K, L, H, W, patch_y, patch_x,
         _build.current_stream_handle(field.device),
     )
     _build.check_launch("extract_patches", err)
     launches += 1
-    route = lib.patches_tma_route
-    route.restype = ctypes.c_int
-    route.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    route = _build.c_function("patches", "patches_tma_route")
     routes["tma" if route(W, patch_y, patch_x, field.data_ptr(), out.data_ptr()) else "scalar"] += 1
     return out

@@ -16,8 +16,6 @@ kernel. There is no fallback from one to the other.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from visualodometry_tpu_torch.ops import _build
@@ -101,14 +99,7 @@ def polish_pose(T0, pts3d, uv, valid, K, delta: float, cut_sq: float, rounds: in
     if T0.device.type == "cpu":
         return _polish_pose_torch(T0, pts3d, uv, valid, K, delta, cut_sq, rounds, iters)
     out = torch.empty((4, 4), dtype=torch.float32, device=T0.device)
-    lib = _build.load_library("pose_polish")
-    fn = lib.pose_polish_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
-        + [ctypes.c_void_p]
-    )
-    err = fn(
+    err = _build.c_function("pose_polish", "pose_polish_launch")(
         T0.data_ptr(), pts3d.data_ptr(), uv.data_ptr(), valid.data_ptr(), K.data_ptr(),
         out.data_ptr(), pts3d.shape[0], max(1, rounds), iters, max(3, iters // 3),
         delta, cut_sq, _build.current_stream_handle(T0.device),

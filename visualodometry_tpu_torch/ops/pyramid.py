@@ -30,7 +30,6 @@ on every device) and up to 8 channels (the pyramid makes 3-8), so
 
 from __future__ import annotations
 
-import ctypes
 import math
 from functools import lru_cache
 
@@ -241,8 +240,7 @@ def blur_stack(bases: torch.Tensor, taps: tuple[tuple[float, ...], ...]) -> torc
     packed, RA = _pack_taps(taps)
     flat = flat.contiguous()
     out = torch.empty((flat.shape[0], C, H, W), dtype=torch.float32, device=bases.device)
-    fn = _library().blur_stack_launch
-    err = fn(
+    err = _build.c_function("blur_stack", "blur_stack_launch")(
         flat.data_ptr(), packed.ctypes.data, out.data_ptr(), flat.shape[0], C,
         packed.shape[1], RA, H, W, _build.current_stream_handle(bases.device),
     )
@@ -251,23 +249,12 @@ def blur_stack(bases: torch.Tensor, taps: tuple[tuple[float, ...], ...]) -> torc
     return out.reshape(*lead, C, H, W)
 
 
-def _library() -> ctypes.CDLL:
-    lib = _build.load_library("blur_stack")
-    lib.blur_stack_launch.restype = ctypes.c_int
-    lib.blur_stack_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    )
-    lib.blur_stack_variant.restype = ctypes.c_int
-    lib.blur_stack_variant.argtypes = [ctypes.c_int] * 2
-    return lib
-
-
 def blur_stack_instantiation(taps: tuple[tuple[float, ...], ...]) -> str:
     """Which build of the kernel a launch with these taps runs: "specialised"
     (compiled for its (C, TP)) or "generic" (C at run time). Asks the built
     library, so it needs nvcc."""
     packed, _ = _pack_taps(taps)
-    v = _library().blur_stack_variant(*packed.shape)
+    v = _build.c_function("blur_stack", "blur_stack_variant")(*packed.shape)
     return {1: "specialised", 0: "generic"}.get(v, "none")
 
 

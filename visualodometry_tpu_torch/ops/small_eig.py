@@ -16,8 +16,6 @@ is no fallback from one to the other.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from visualodometry_tpu_torch.geometry.linalg import (
@@ -89,12 +87,9 @@ def smallest_eigvec(M: torch.Tensor, iters: int = 24) -> torch.Tensor:
     batch = M.numel() // (n * n)
     if batch == 0:
         return out
-    lib = _build.load_library("small_eig")
-    fn = lib.small_eig_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    err = fn(M.data_ptr(), out.data_ptr(), batch, n, iters,
-             _build.current_stream_handle(M.device))
+    err = _build.c_function("small_eig", "small_eig_launch")(
+        M.data_ptr(), out.data_ptr(), batch, n, iters, _build.current_stream_handle(M.device)
+    )
     _build.check_launch("small_eig", err)
     launches += 1
     profiling.count("small_eig.launch")
