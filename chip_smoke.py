@@ -4,7 +4,7 @@
 Run from the root of a checkout:  python3 chip_smoke.py
 
 The script checks: every path of the port on the card against its limits.
-Its only timings are the kernels' (phases 2-5, 14, 20, 27 and 28), which
+Its only timings are the kernels' (phases 2-5, 14, 20 and 27-29), which
 make the kernel table of its last lines; the speed of the port's paths is
 the benchmark's (`vobench/`, BENCHMARK.json). The peaks, the roofline
 bound and the interval union are the benchmark's own
@@ -197,6 +197,18 @@ Phases (any failed check raises, so the script exits non-zero):
      POSE_POLISH_TRANS_TOL, a second call bit-equal to the first; the
      kernel's device time (`time_ms`) and the host time of one call,
      synchronised, of the kernel and of the plain version (~4,475 launches).
+ 29. (after phase 28) the P3P kernel (csrc/p3p.cu, `p3p_grunert` with its
+     Durand-Kerner) against its plain version on `make_pnp_problem`'s
+     triples, drawn as RANSAC draws them, at P3P_H hypotheses: against the
+     plain version on the card, `ok` differs in at most P3P_OK_MIS_MAX of
+     the slots and at least P3P_CLOSE_MIN of those both call `ok` agree to
+     1e-4; against the CPU's, no more than P3P_CPU_SLACK farther than the
+     card's plain version; the 39-iteration control fails the card bound;
+     collinear and repeated points give the plain version's flags and NaN
+     slots; a second call bit-equal with no host read; the kernel's device
+     time (`time_ms`) and the host time of one call, synchronised, of the
+     kernel and of the plain version (~4,050 launches). The SuperPoint
+     phase counts one launch a tracking frame.
 K1 is also held against its plain version at the SuperPoint path's shape,
 2048 x 2048 x 256, and timed there beside `cdist` + `topk`, on a log line of
 its own (phase 2). Every phase logs its seconds.
@@ -543,6 +555,15 @@ SMALL_EIG_ITERS = 24
 # (tests/test_torch_pose_polish.py gives the measurements behind them)
 POSE_POLISH_N = (4096, 2048)
 POSE_POLISH_ROT_TOL, POSE_POLISH_TRANS_TOL = 1e-6, 3e-5
+# the P3P kernel's hypotheses a call (the SuperPoint cell's 512, and half)
+# and its bounds against the plain version on the card, which forms its
+# complex products and quotients as the kernel does: the share of slots
+# with another `ok` and the least share of the slots both call `ok` within
+# 1e-4 (the 39-iteration control reads below it); against the CPU's, no
+# more than P3P_CPU_SLACK farther than the card's plain version stands
+# (tests/test_torch_p3p.py gives the measurements behind them)
+P3P_H = (512, 256)
+P3P_OK_MIS_MAX, P3P_CLOSE_MIN, P3P_CPU_SLACK = 2e-3, 0.985, 0.01
 TRAIN_DP_HW, TRAIN_DP_BATCH, TRAIN_DP_LR = (96, 128), 16, 1e-3
 # step 0's loss and terms on the card against the port on the CPU (same
 # weights and batch; float32 on both, TF32 off; cuDNN and oneDNN sum the
@@ -1169,6 +1190,131 @@ def phase_pose_polish(torch, dev, card):
     )
 
 
+def p3p_ops(iters: int = 40, newton: int = 3) -> int:
+    """Floating-point operations of one sample's solve in csrc/p3p.cu, a
+    fused multiply-add as two, a division or square root as one: the
+    bearings and the sample's cosines and ratios (68), the resultant (21
+    each) at the five abscissae and the Vandermonde product (45), the
+    monic scaling (54), `iters` Durand-Kerner passes of 80 a root (the
+    three differences and their product 24, the modulus floor 4, Horner
+    40, the quotient 10, the update 2), the world triad (44), and for each
+    root `newton` Newton steps (3 resultants and 6 more each) and the pose
+    (138: gates, distances, camera points, triad, R and t)."""
+    return 68 + 5 * 21 + 45 + 54 + iters * 4 * 80 + 44 + 4 * (3 + newton * 69 + 138)
+
+
+def p3p_agreement(torch, out, ref) -> dict:
+    """How far a P3P solver's (R, t, ok) is from the reference's, over the
+    4H slots: the share whose `ok` differs, the share of the slots both
+    call `ok` within 1e-4 in R and in t over max(|t|, 1), the largest such
+    gap (two near roots that trade slots read ~1), and the slots either
+    calls `ok` with NaN on one side only."""
+    (Ra, ta, oka), (Rb, tb, okb) = ([v.cpu() for v in o] for o in (out, ref))
+    both = oka & okb
+    gap = torch.maximum((Ra - Rb).abs().amax((-1, -2)), (ta - tb).abs().amax(-1)
+                        / torch.clamp(torch.linalg.vector_norm(tb, dim=-1), min=1.0))
+    nan_a, nan_b = torch.isnan(Ra).any(-1).any(-1), torch.isnan(Rb).any(-1).any(-1)
+    return dict(ok_mis=float((oka != okb).float().mean()), both=int(both.sum()),
+                close=float((gap[both] < 1e-4).float().mean()),
+                gap_max=float(gap[both].max()) if bool(both.any()) else 0.0,
+                nan_mis=int(((nan_a != nan_b) & (oka | okb)).sum()))
+
+
+def phase_p3p(torch, dev, card):
+    """The P3P kernel against its plain version at P3P_H, on the card and
+    on the CPU; degenerate triples; the 39-iteration control; a second call
+    bit-equal and no host read; the kernel's device time (`time_ms`) and
+    the host time of one call, synchronised, of the kernel and of the plain
+    version (~4,050 launches). Host clocks and CUDA events only, as in
+    phase 27. The record's times are SuperPoint's: a tracking frame's one
+    launch at 512 hypotheses."""
+    import functools
+
+    from visualodometry_tpu_torch.data.synthetic import K_DEFAULT, make_pnp_problem
+    from visualodometry_tpu_torch.estimation import p3p
+    from visualodometry_tpu_torch.estimation.ransac import sample_valid_indices
+    from visualodometry_tpu_torch.geometry.camera import pixels_to_normalized
+
+    shapes, controls = {}, []
+    for H in P3P_H:
+        _, _, X, uv, valid = make_pnp_problem(2048, 0.3, seed=H)
+        X, uv, valid = torch.as_tensor(X), torch.as_tensor(uv), torch.as_tensor(valid)
+        idx = sample_valid_indices(torch.Generator().manual_seed(H), valid, H, 3)
+        xy = pixels_to_normalized(uv, torch.as_tensor(K_DEFAULT))
+        X, xy = X[idx].contiguous(), xy[idx].contiguous()
+        Xd, xyd = X.to(dev), xy.to(dev)
+        out = p3p.p3p_grunert(Xd, xyd)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = p3p.p3p_grunert(Xd, xyd)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        plain = p3p._p3p_grunert_torch(Xd, xyd)
+        cpu_plain = p3p._p3p_grunert_torch(X, xy)
+        card_m = p3p_agreement(torch, out, plain)
+        cpu_m = p3p_agreement(torch, out, cpu_plain)
+        witness = p3p_agreement(torch, plain, cpu_plain)
+        repeat = all(bool(((a == b) | (a.isnan() & b.isnan())).all()) for a, b in zip(out, again))
+        dk = p3p._durand_kerner4
+        p3p._durand_kerner4 = functools.partial(dk, iters=39)
+        try:
+            ctrl = p3p_agreement(torch, p3p._p3p_grunert_torch(Xd, xyd), plain)
+        finally:
+            p3p._durand_kerner4 = dk
+        controls.append(ctrl)
+        log(f"p3p parity at {H} hypotheses: against the card's plain version {card_m}; against "
+            f"the CPU's {cpu_m} (the card's plain version against the CPU's {witness}); the "
+            f"39-iteration control {ctrl}; second call bit-equal {repeat} with no host read")
+        check(card_m["ok_mis"] <= P3P_OK_MIS_MAX and card_m["close"] >= P3P_CLOSE_MIN
+              and card_m["nan_mis"] == 0,
+              f"p3p disagrees with the plain version on the card at {H}: {card_m}")
+        check(cpu_m["ok_mis"] <= witness["ok_mis"] + P3P_CPU_SLACK / 10
+              and cpu_m["close"] >= witness["close"] - P3P_CPU_SLACK
+              and cpu_m["nan_mis"] <= witness["nan_mis"],
+              f"p3p stands farther from the CPU's plain version than the card's does at {H}: "
+              f"{cpu_m}, {witness}")
+        check(repeat, f"p3p does not repeat at {H}")
+        ops, nbytes = H * p3p_ops(), H * (60 + 196) + 152
+        b_ms, b_by = bound_ms(ops, nbytes)
+        rec = dict(
+            ms=time_ms(torch, lambda: p3p.p3p_grunert(Xd, xyd)),
+            host_ms=host_ms(torch, lambda: p3p.p3p_grunert(Xd, xyd), reps=11),
+            plain_ms=host_ms(torch, lambda: p3p._p3p_grunert_torch(Xd, xyd)),
+            bound_ms=b_ms, bound_by=b_by, ok_mis=card_m["ok_mis"], close=card_m["close"],
+            max_abs_err=card_m["gap_max"],
+        )
+        log(f"p3p at {H} hypotheses: kernel {rec['ms']:.4f} ms on the device, "
+            f"{rec['host_ms']:.3f} ms host a call; plain {rec['plain_ms']:.2f} ms host a call; "
+            f"bound {b_ms:.6f} ms ({b_by}), {b_ms / rec['ms']:.2%} of it, on {card}")
+        shapes[str(H)] = rec
+    # the control fails the card bounds over the phase's slots together
+    pooled = sum(c["close"] * c["both"] for c in controls) / sum(c["both"] for c in controls)
+    log(f"p3p: the 39-iteration control's close share over {P3P_H} is {pooled:.4f} "
+        f"(the kernel's bound {P3P_CLOSE_MIN})")
+    check(pooled < P3P_CLOSE_MIN, "p3p: the 39-iteration control passes the card bound")
+    # collinear world points, a repeated point, one sound triple
+    X = torch.tensor([[[0.0, 0.0, 10.0], [1.0, 0.0, 10.0], [2.0, 0.0, 10.0]],
+                      [[0.0, 0.0, 10.0], [0.0, 0.0, 10.0], [1.0, 1.0, 12.0]],
+                      [[1.0, 2.0, 10.0], [3.0, 1.0, 12.0], [-2.0, 0.0, 9.0]]])
+    xy = torch.tensor([[[0.0, 0.0], [0.1, 0.0], [0.2, 0.0]],
+                       [[0.0, 0.0], [0.0, 0.0], [0.1, 0.1]],
+                       [[0.1, 0.2], [0.25, 0.08], [-0.22, 0.0]]])
+    R, t, ok = (v.cpu() for v in p3p.p3p_grunert(X.to(dev), xy.to(dev)))
+    Rp, tp, okp = (v.cpu() for v in p3p._p3p_grunert_torch(X.to(dev), xy.to(dev)))
+    log(f"p3p degenerate triples: ok {ok.tolist()}, plain {okp.tolist()}")
+    check(torch.equal(ok, okp) and not bool(ok[:2].any()), "p3p: degenerate triples' flags")
+    check(torch.equal(R.isnan(), Rp.isnan()) and torch.equal(t.isnan(), tp.isnan()),
+          "p3p: degenerate triples' NaN slots")
+    sp = shapes[str(P3P_H[0])]
+    return dict(
+        name="p3p_grunert", route="cuda", source="visualodometry_tpu_torch/csrc/p3p.cu",
+        replaces="none: XLA fuses visualodometry_tpu/estimation/p3p.py p3p_grunert",
+        max_abs_err=max(r["max_abs_err"] for r in shapes.values()), shapes=shapes,
+        **{k: sp[k] for k in ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by")},
+    )
+
+
 def phase_main_path(torch, dev, card):
     from visualodometry_tpu_torch import config_from_dict
     from visualodometry_tpu_torch.core import init_state, make_chunked_pipeline_fn
@@ -1225,6 +1371,7 @@ def phase_main_path(torch, dev, card):
     check(polish == polish_want, f"the pose-polish kernel launched {polish} times, "
           f"not {polish_want}")
     launches["polish_pose"] = polish
+    check(p3p_launches() == 0, "the main path (DLT PnP) launched the P3P kernel")
 
     same = repeats(torch, outs, run_pass())
     log(f"main path second pass on {card}: T_wc, resets and keyframes bit-equal to the first "
@@ -1576,7 +1723,9 @@ def attention_config():
 
 
 def phase_learned(torch, dev, card, scene, u8, name: str):
-    """One learned path on the 32-frame fixture: tracking and launches."""
+    """One learned path on the 32-frame fixture: tracking and launches.
+    Returns the SuperPoint path's P3P launches a pass (one a tracking
+    frame), None for the attention path."""
     from visualodometry_tpu_torch.core import init_state, make_chunked_pipeline_fn
     from visualodometry_tpu_torch.eval import ate_rmse
 
@@ -1623,12 +1772,19 @@ def phase_learned(torch, dev, card, scene, u8, name: str):
         check(keyframes >= jax_kf - LEARNED_KF_MARGIN,
               f"{name} path made {keyframes} keyframes; the JAX package makes {jax_kf}")
         check(launches == want, f"{name} path launched {launches}, not {want}")
+        if sp:
+            # one P3P PnP a tracking frame: every frame after the bootstrap
+            solved = p3p_launches()
+            check(solved == N_FRAMES - 2, f"the P3P kernel launched {solved} times, "
+                  f"not {N_FRAMES - 2}")
     if sp:
         limit = SEED_MEDIAN_FACTOR * float(np.median(SP_JAX_CPU_ATE))
         log(f"{name} path at seeds {list(seeds)}: sim3 ATE {[round(a, 6) for a in ates]} m, "
             f"median {np.median(ates):.6f} m (limit {limit:.6f} m, {SEED_MEDIAN_FACTOR:g} x the "
             f"JAX package's CPU median over seeds 0-7; every pass under {gross:.3f} m)")
         check(np.median(ates) <= limit, f"{name} path: median ATE over the seed set")
+        return solved
+    return None
 
 
 def phase_engine_superpoint(torch, dev, scene, u8):
@@ -2822,10 +2978,11 @@ def phase_gates_all(torch, dev, smi, fixture) -> dict:
 
 
 def zero_launches():
-    from visualodometry_tpu_torch.ops import match_top2, patches, pose_polish, pyramid, small_eig
+    from visualodometry_tpu_torch.ops import (match_top2, p3p, patches, pose_polish, pyramid,
+                                              small_eig)
 
     match_top2.launches = patches.launches = pyramid.launches = small_eig.launches = 0
-    pose_polish.launches = 0
+    pose_polish.launches = p3p.launches = 0
     patches.routes.update(tma=0, scalar=0)
 
 
@@ -2839,6 +2996,12 @@ def pose_polish_launches() -> int:
     from visualodometry_tpu_torch.ops import pose_polish
 
     return pose_polish.launches
+
+
+def p3p_launches() -> int:
+    from visualodometry_tpu_torch.ops import p3p
+
+    return p3p.launches
 
 
 def read_routes() -> dict:
@@ -2894,13 +3057,15 @@ def run_phases(torch, dev, smi, fixtures: dict, t_start: float) -> int:
                timed("patches", phase_patches, torch, dev),
                timed("blur", phase_blur, torch, dev, smi),
                timed("small_eig", phase_small_eig, torch, dev, smi),
-               timed("pose_polish", phase_pose_polish, torch, dev, smi)]
+               timed("pose_polish", phase_pose_polish, torch, dev, smi),
+               timed("p3p", phase_p3p, torch, dev, smi)]
     kernels[0]["lanes"] = timed("match_lanes", phase_match_lanes, torch, dev, smi)
     launches, scene, u8, main_summary = timed("main_path", phase_main_path, torch, dev, smi)
     timed("cli", phase_cli, torch, dev, smi, scene, u8, tmp, fixtures["drill"])
     timed("match_real", phase_match_real, torch, dev, u8)
     timed("engine", phase_engine, torch, dev, scene, u8, tmp)
-    timed("superpoint", phase_learned, torch, dev, smi, scene, u8, "superpoint")
+    launches["p3p_grunert"] = timed("superpoint", phase_learned, torch, dev, smi, scene, u8,
+                                    "superpoint")
     timed("attention", phase_learned, torch, dev, smi, scene, u8, "attention")
     timed("engine_superpoint", phase_engine_superpoint, torch, dev, scene, u8)
     kernels[1]["klt"] = timed("patches_klt", phase_patches_klt, torch, dev, smi, u8)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Registers, spills and the instruction mix of each kernel a source builds.
 
-    python3 scripts/kernel_sass_report.py [blur_stack|match_top2|patches|small_eig|pose_polish]
+    python3 scripts/kernel_sass_report.py [blur_stack|match_top2|patches|small_eig|pose_polish|p3p]
 
 Needs nvcc and cuobjdump (the CUDA toolkit). Builds
 `visualodometry_tpu_torch/csrc/<name>.cu` with the port's nvcc flags plus

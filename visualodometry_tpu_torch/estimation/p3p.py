@@ -12,9 +12,12 @@ are quadratic in v:
 Their resultant R(v) is a quartic whose coefficients are recovered by
 evaluating R at five fixed abscissae and applying one constant inverse
 Vandermonde matrix. Its roots come from a fixed 40 iterations of
-Durand-Kerner in complex64 (which runs on CUDA in PyTorch); each real
-positive root yields distances and a rigid pose by triad composition. Up
-to 4 poses per sample: the RANSAC layer scores them all.
+Durand-Kerner in complex64; each real positive root yields distances and
+a rigid pose by triad composition. Up to 4 poses per sample: the RANSAC
+layer scores them all.
+
+`p3p_grunert` runs the plain version, `_p3p_grunert_torch`, on CPU
+tensors, and one launch of csrc/p3p.cu (ops/p3p.py) on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+from visualodometry_tpu_torch.ops import p3p as p3p_ops
 
 # abscissae for exact quartic coefficient recovery (constant, host-side)
 _VS = (-2.0, -1.0, 0.0, 1.0, 2.0)
@@ -116,9 +121,21 @@ def p3p_grunert(X: torch.Tensor, xy: torch.Tensor):
     """Batched P3P: world points + normalized image points -> 4 poses.
 
     X: (H, 3, 3) world points (rows); xy: (H, 3, 2) normalized image
-    coordinates. Returns (R (H, 4, 3, 3), t (H, 4, 3), ok (H, 4)): up to
-    four camera-from-world poses per sample, masked by `ok`.
+    coordinates, both contiguous float32. Returns (R (H, 4, 3, 3),
+    t (H, 4, 3), ok (H, 4)): up to four camera-from-world poses per
+    sample, masked by `ok`. CPU tensors take the plain version; CUDA
+    tensors are one launch of csrc/p3p.cu on the current stream, with no
+    host read.
     """
+    p3p_ops.check(X, xy)
+    if X.device.type == "cpu":
+        return _p3p_grunert_torch(X, xy)
+    return p3p_ops.p3p_cuda(X, xy, *_constants(X.device))
+
+
+def _p3p_grunert_torch(X: torch.Tensor, xy: torch.Tensor):
+    """Plain version of `p3p_grunert`, one batched tensor operation per
+    scalar step: the CPU route and the kernel's contract."""
     f = torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1)
     f = f / torch.linalg.vector_norm(f, dim=-1, keepdim=True)  # (H, 3, 3)
     X1, X2, X3 = X[:, 0], X[:, 1], X[:, 2]

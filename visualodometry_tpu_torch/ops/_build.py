@@ -25,7 +25,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
-KERNEL_SOURCES = ("match_top2", "patches", "blur_stack", "small_eig", "pose_polish")
+KERNEL_SOURCES = ("match_top2", "patches", "blur_stack", "small_eig", "pose_polish", "p3p")
 
 # The C entry points of each source and their argument types, in the order
 # of the C declarations; every one returns an int (a CUDA error code, or
@@ -43,6 +43,7 @@ ENTRY_POINTS = {
     },
     "small_eig": {"small_eig_launch": [_P] * 2 + [_I] * 3 + [_P]},
     "pose_polish": {"pose_polish_launch": [_P] * 6 + [_I] * 4 + [_F] * 2 + [_P]},
+    "p3p": {"p3p_launch": [_P] * 8 + [_I] + [_P]},
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
